@@ -10,9 +10,11 @@ holds each against its plain PyTorch version on the card, serves one mixed
 batch (SCORE, COMPLETE, CLASSIFY, EMBED) with proxy-8b at full width
 (32 layers, d_model 4096, vocab 128256, bf16, random weights from a seed),
 checks that the served path launched each kernel the expected number of
-times and that its results are well formed and agree with a re-serve
-through the plain attention, then times each kernel beside its plain
-version, its bound and one PyTorch library call.  The last line is a JSON
+times and that its results are well formed, holds what goes through the
+kernels (every decode step's logits, CLASSIFY's label logprobs, EMBED's
+vectors) to the same computed through the plain attention, then times
+each kernel beside its plain version, its bound and one PyTorch library
+call.  The last line is a JSON
 object with ``"ok": true``; any failed check exits non-zero without it.
 It needs no network and imports nothing of JAX.
 """
@@ -24,12 +26,17 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
+# kernel-served vs plain-served limits at full width (bf16, 32 layers),
+# a few times the readings on the H100 (PERF.md, section 6)
+SERVE_TOL = {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
+             "embed_cosine": 0.9995}
 SEED = 0
 N_LAYERS = 32
 
@@ -147,13 +154,14 @@ def flash_bound(q, k, causal, window):
 
 
 def build_kernels(dec_ops, flash_ops):
-    from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all([dec_ops.LIB, flash_ops.LIB])
+    libs = (dec_ops.LIB, flash_ops.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc per source
+        list(pool.map(lambda lib: lib.load(), libs))
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{dec_ops.LIB.source.name} + {flash_ops.LIB.source.name} "
           "(nvcc, sm_90a, in parallel)")
-    for lib in (dec_ops.LIB, flash_ops.LIB):
+    for lib in libs:
         regs = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {lib.source.name}: {lib.build_seconds:.1f} s, ptxas: "
@@ -253,44 +261,216 @@ def check_results(reqs, results):
                 fail(f"request {r.request_id}: embedding norm {n}")
 
 
-class DecodedIds:
-    """Records the token ids of every generated text, in decode order."""
+class Spy:
+    """Wraps ``owner.name``, passing every call through, and hands each
+    call's arguments and result to ``record(args, kw, out)``."""
 
-    def __init__(self, tok):
-        self.tok, self.ids = tok, []
-        self.orig = tok.decode
-
-    def __enter__(self):
-        def decode(seq):
-            self.ids.append([int(t) for t in seq])
-            return self.orig(seq)
-        self.tok.decode = decode
-        return self
-
-    def __exit__(self, *exc):
-        self.tok.decode = self.orig
-
-
-class Capture:
-    """Wraps a kernel launcher to keep the inputs of its latest launch (the
-    main path's shapes and data) while passing every call through.  The
-    served path never writes to a tensor after handing it to a kernel, so
-    references suffice."""
-
-    def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.orig = getattr(module, name)
-        self.last = None
+    def __init__(self, owner, name, record):
+        self.owner, self.name, self.record = owner, name, record
 
     def __enter__(self):
+        orig = self.orig = getattr(self.owner, self.name)
+
         def wrapped(*args, **kw):
-            self.last = (args, kw)
-            return self.orig(*args, **kw)
-        setattr(self.module, self.name, wrapped)
+            out = orig(*args, **kw)
+            self.record(args, kw, out)
+            return out
+        setattr(self.owner, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
+        setattr(self.owner, self.name, self.orig)
+
+
+def first_launch_per_pass(pass_of):
+    """A Spy recorder keeping the inputs of the first kernel launch of each
+    model pass (the layers of one pass share ``pass_of(args)``) in
+    ``passes``.  The served path never writes to a tensor after handing it
+    to a kernel, so references suffice."""
+    passes = []
+
+    def record(args, kw, out):
+        key = pass_of(args)
+        if not passes or passes[-1][0] != key:
+            passes.append((key, args, kw))
+    return passes, record
+
+
+def step_logits(batcher, tables, lens, cur, impl):
+    """The logits of one continuous-batcher decode step with single-token
+    attention ``impl``, on a gathered copy of the paged KV (the pool is
+    left as it was)."""
+    from repro_torch.models import attention
+    params = batcher.engine.params
+    cache = batcher.kv.gather(batcher.kv.pool, tables, lens)
+    with attention.use_decode_impl(impl):
+        out = batcher.model.apply(params, {"tokens": cur}, mode="decode",
+                                  cache=cache)
+    return batcher.model.logits_of(params, out["hidden"][:, 0])
+
+
+def serve_and_check(torch, eng, errs):
+    """Serve the mixed batch on the kernel path (counting launches, timing
+    steps), re-serve it through the plain attention, gate on both, and time
+    each kernel at the served inputs with the most work.  Returns the rows
+    of the kernels line."""
+    from repro_torch.inference import tokenizer as tok
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention
+    cfg = eng.cfg
+    reqs = requests()
+    # warm-up: the first calls pay for cuBLAS handles and allocator growth
+    eng.submit_batch(reqs[:1] + reqs[-1:])
+    batcher = eng._batcher
+    step_ms = []
+    prefill_ms = []
+    orig_decode, orig_prefill = batcher._decode_fn, batcher._prefill_fn
+
+    def timed(fn, sink):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    batcher._decode_fn = timed(orig_decode, step_ms)
+    batcher._prefill_fn = timed(orig_prefill, prefill_ms)
+    before = eng.backend_stats()
+    k1_passes, k1_record = first_launch_per_pass(lambda a: id(a[3]))
+    k2_passes, k2_record = first_launch_per_pass(lambda a: tuple(a[0].shape))
+    ids, lps = [], []
+    dec_ops.LAUNCHES = 0
+    flash_ops.LAUNCHES = 0
+    with Spy(dec_ops, "decode_attention_cuda", k1_record), \
+            Spy(flash_ops, "flash_attention_cuda", k2_record), \
+            Spy(eng, "_sequence_logprob",
+                lambda a, kw, out: lps.extend(out[0])), \
+            Spy(tok, "decode", lambda a, kw, out: ids.append(list(a[0]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.submit_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"decode_attention": dec_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES}
+    batcher._decode_fn, batcher._prefill_fn = orig_decode, orig_prefill
+    after = eng.backend_stats()
+    check_results(reqs, results)
+    decode_steps = after["decode_steps"] - before["decode_steps"]
+    prefill_tokens = after["prefill_tokens"] - before["prefill_tokens"]
+    n_cls = sum(r.kind == "classify" for r in reqs)
+    n_emb = sum(r.kind == "embed" for r in reqs)
+    passes = -(-n_cls // eng.max_batch) + -(-n_emb // eng.max_batch)
+    expect = {"decode_attention": cfg.num_layers * decode_steps,
+              "flash_attention": cfg.num_layers * passes}
+    print(f"served {len(reqs)} requests in {wall:.3f} s: {decode_steps} "
+          f"decode steps, {len(prefill_ms)} chunked-prefill steps "
+          f"({prefill_tokens} prompt tokens), {passes} full-sequence passes")
+    print(f"launches: {launches}, expected {expect}")
+    if launches != expect or min(launches.values()) == 0:
+        fail("kernel launch counts differ from the served path's steps")
+    med_step = statistics.median(step_ms) if step_ms else float("nan")
+    print(f"decode step: median {med_step:.3f} ms over {len(step_ms)} steps "
+          f"(B={eng.max_batch} slots); chunked prefill "
+          f"{prefill_tokens / (sum(prefill_ms) / 1e3):.1f} tokens/s over "
+          f"{len(prefill_ms)} steps")
+
+    # 4. re-serve through the plain attention on the same weights, and hold
+    #    what went through the kernels to it: each decode step's logits
+    #    (K1, both attentions on the same step state), CLASSIFY's label
+    #    logprobs and EMBED's vectors (K2).  SCORE is chunked prefill only
+    #    on this backend and launches no kernel.
+    probe = []            # per decode step: rel. L2 error, max |err|, top-1
+    ref_ids, ref_lps = [], []
+
+    def probed(tables, lens, act, cur):
+        rows = act.bool()
+        lk = step_logits(batcher, tables, lens, cur, "auto")[rows]
+        lp = step_logits(batcher, tables, lens, cur, "reference")[rows]
+        rel = ((lk - lp).norm(dim=-1) / lp.norm(dim=-1)).max()
+        same = (lk.argmax(-1) == lp.argmax(-1)).sum()
+        probe.append((float(rel), max_err(lk, lp), int(same), int(rows.sum())))
+        return orig_decode(tables, lens, act, cur)
+
+    batcher.decode_impl = "reference"
+    batcher._decode_fn = probed
+    with attention.use_flash_impl("reference"), \
+            Spy(eng, "_sequence_logprob",
+                lambda a, kw, out: ref_lps.extend(out[0])), \
+            Spy(tok, "decode",
+                lambda a, kw, out: ref_ids.append(list(a[0]))):
+        ref_results = eng.submit_batch(reqs)
+    batcher._decode_fn = orig_decode
+    batcher.decode_impl = "auto"
+    check_results(reqs, ref_results)
+    logits_rel = max(p[0] for p in probe)
+    logits_abs = max(p[1] for p in probe)
+    top1 = (sum(p[2] for p in probe), sum(p[3] for p in probe))
+    d_lp = max(abs(a - b) for a, b in zip(lps, ref_lps))
+    cos = min(sum(x * y for x, y in zip(a.embedding, b.embedding))
+              for a, b in zip(results, ref_results) if a.kind == "embed")
+    agree = []            # matching leading tokens / tokens generated
+    for a, b in zip(ids, ref_ids):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        agree.append(f"{n}/{max(len(a), len(b))}")
+    same_label = sum(a.label == b.label for a, b in zip(results, ref_results)
+                     if a.kind == "classify")
+    print(f"kernel vs plain, K1: decode-step logits over {len(probe)} steps "
+          f"max rel. L2 err {logits_rel:.3g} (tol "
+          f"{SERVE_TOL['decode_logits_rel']}), max |err| {logits_abs:.3g}, "
+          f"same top-1 token {top1[0]}/{top1[1]} rows")
+    print(f"kernel vs plain, K2: CLASSIFY label logprobs {len(lps)} pairs "
+          f"max |err| {d_lp:.3g} nats (tol {SERVE_TOL['classify_logprob']}), "
+          f"labels same {same_label}/{n_cls}; EMBED min cosine {cos:.6f} "
+          f"(tol {SERVE_TOL['embed_cosine']})")
+    print(f"COMPLETE leading tokens equal {agree} (not gated: greedy argmax "
+          "over near-flat random logits can flip on bf16 rounding)")
+    if len(lps) != len(ref_lps) or not lps or not probe:
+        fail("the served path ran no CLASSIFY pass or no decode step")
+    if not (logits_rel <= SERVE_TOL["decode_logits_rel"]
+            and d_lp <= SERVE_TOL["classify_logprob"]
+            and cos >= SERVE_TOL["embed_cosine"]):
+        fail("the kernel-served and plain-served results disagree")
+
+    # 5. profile one served batch: device busy share and top kernels
+    profile_served(torch, eng, reqs)
+
+    # 6. time each kernel at the served inputs with the most work (K1: the
+    #    decode step with the most valid keys; K2: the largest pass) and at
+    #    the model's long shapes, beside its plain version, its bound and
+    #    SDPA
+    if not k1_passes or not k2_passes:
+        fail("the served path launched a kernel no time")
+    k1_keys = [int(a[3].clamp(max=a[1].shape[1]).sum())
+               for _, a, _ in k1_passes]
+    k1_served = k1_passes[k1_keys.index(max(k1_keys))]
+    k2_served = max(k2_passes, key=lambda p: math.prod(p[0]))
+    rows = []
+    for name, (_, args, kw), src, tpu in (
+            ("decode_attention", k1_served,
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:74"),
+            ("flash_attention", k2_served,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:86")):
+        t = (time_decode(torch, dec_ops, *args) if name == "decode_attention"
+             else time_flash(torch, flash_ops, *args, **kw))
+        err = t.pop("max_abs_err")
+        tol = TOL[str(args[0].dtype).split(".")[-1]]
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version on the served "
+                 f"path's inputs: {err} > {tol}")
+        errs[name] = max(errs[name], err)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": launches[name],
+                     "max_abs_err": errs[name], **t})
+    return rows
 
 
 def main() -> int:
@@ -314,9 +494,7 @@ def main() -> int:
 
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.inference import tokenizer as tok
     from repro_torch.inference.engine import TorchInferenceEngine
-    from repro_torch.models import attention
 
     # 1-2. build, then hold each kernel against its plain version
     build_kernels(dec_ops, flash_ops)
@@ -336,114 +514,7 @@ def main() -> int:
           f"({cfg.num_layers} of {N_LAYERS} layers)")
     if cfg.num_layers != N_LAYERS or cfg.d_model != 4096:
         fail("proxy-8b is not at full width")
-    reqs = requests()
-    # warm-up: the first calls pay for cuBLAS handles and allocator growth
-    eng.submit_batch(reqs[:1] + reqs[-1:])
-    batcher = eng._batcher
-    step_ms = []
-    prefill_ms = []
-    orig_decode, orig_prefill = batcher._decode_fn, batcher._prefill_fn
-
-    def timed(fn, sink):
-        def run(*a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            sink.append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    batcher._decode_fn = timed(orig_decode, step_ms)
-    batcher._prefill_fn = timed(orig_prefill, prefill_ms)
-    before = eng.backend_stats()
-    dec_ops.COUNTER.launches = 0
-    flash_ops.COUNTER.launches = 0
-    with Capture(dec_ops, "decode_attention_cuda") as cap1, \
-            Capture(flash_ops, "flash_attention_cuda") as cap2, \
-            DecodedIds(tok) as ids:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = eng.submit_batch(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = {"decode_attention": dec_ops.COUNTER.launches,
-                "flash_attention": flash_ops.COUNTER.launches}
-    batcher._decode_fn, batcher._prefill_fn = orig_decode, orig_prefill
-    after = eng.backend_stats()
-    check_results(reqs, results)
-    decode_steps = after["decode_steps"] - before["decode_steps"]
-    prefill_tokens = after["prefill_tokens"] - before["prefill_tokens"]
-    n_cls = sum(r.kind == "classify" for r in reqs)
-    n_emb = sum(r.kind == "embed" for r in reqs)
-    passes = -(-n_cls // eng.max_batch) + -(-n_emb // eng.max_batch)
-    expect = {"decode_attention": cfg.num_layers * decode_steps,
-              "flash_attention": cfg.num_layers * passes}
-    print(f"served {len(reqs)} requests in {wall:.3f} s: {decode_steps} "
-          f"decode steps, {len(prefill_ms)} chunked-prefill steps "
-          f"({prefill_tokens} prompt tokens), {passes} full-sequence passes")
-    print(f"launches: {launches}, expected {expect}")
-    if launches != expect or min(launches.values()) == 0:
-        fail("kernel launch counts differ from the served path's steps")
-    med_step = statistics.median(step_ms) if step_ms else float("nan")
-    print(f"decode step: median {med_step:.3f} ms over {len(step_ms)} steps "
-          f"(B={eng.max_batch} slots); chunked prefill "
-          f"{prefill_tokens / (sum(prefill_ms) / 1e3):.1f} tokens/s over "
-          f"{len(prefill_ms)} steps")
-
-    # 4. re-serve through the plain attention on the same weights
-    batcher.decode_impl = "reference"
-    with attention.use_flash_impl("reference"), DecodedIds(tok) as ref_ids:
-        ref_results = eng.submit_batch(reqs)
-    batcher.decode_impl = "auto"
-    check_results(reqs, ref_results)
-    d_score = max(abs(a.score - b.score) for a, b in zip(results, ref_results)
-                  if a.kind == "score")
-    cos = min(sum(x * y for x, y in zip(a.embedding, b.embedding))
-              for a, b in zip(results, ref_results) if a.kind == "embed")
-    agree = []            # matching leading tokens / tokens generated
-    for a, b in zip(ids.ids, ref_ids.ids):
-        n = 0
-        while n < min(len(a), len(b)) and a[n] == b[n]:
-            n += 1
-        agree.append(f"{n}/{max(len(a), len(b))}")
-    same_label = sum(a.label == b.label for a, b in zip(results, ref_results)
-                     if a.kind == "classify")
-    print(f"kernel vs plain serve: max|dscore|={d_score:.3g} (tol 1e-3), "
-          f"min embed cosine={cos:.6f} (tol 0.99), classify labels same "
-          f"{same_label}/{n_cls}, complete leading tokens equal {agree} "
-          "(not gated: greedy argmax over near-flat random logits can flip "
-          "on bf16 rounding)")
-    if not (d_score <= 1e-3 and cos >= 0.99):
-        fail("kernel path and plain path disagree on SCORE / EMBED")
-
-    # 5. profile one served batch: device busy share and top kernels
-    profile_served(torch, eng, reqs)
-
-    # 6. time each kernel at the main path's shapes and at the model's
-    #    long shapes, beside its plain version, its bound and SDPA
-    rows = []
-    for name, cap, src, tpu in (
-            ("decode_attention", cap1,
-             "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:74"),
-            ("flash_attention", cap2,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:86")):
-        if cap.last is None:
-            fail(f"{name}: the served path never launched it")
-        args, kw = cap.last
-        t = (time_decode(torch, dec_ops, *args) if name == "decode_attention"
-             else time_flash(torch, flash_ops, *args, **kw))
-        err = t.pop("max_abs_err")
-        tol = TOL[str(args[0].dtype).split(".")[-1]]
-        if not err <= tol:
-            fail(f"{name} disagrees with its plain version on the served "
-                 f"path's inputs: {err} > {tol}")
-        errs[name] = max(errs[name], err)
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": launches[name],
-                     "max_abs_err": errs[name], **t})
+    rows = serve_and_check(torch, eng, errs)
     long_shapes(torch, dec_ops, flash_ops, dev)
 
     print(card)
@@ -475,10 +546,8 @@ def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200):
     mask = (torch.arange(Smax, device=q.device)[None]
             < lengths[:, None])[:, None, None]            # [B,1,1,Smax]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    launches = dec_ops.COUNTER.launches
     ms = cuda_time_ms(lambda: dec_ops.decode_attention_cuda(
         q, kc, vc, lengths), iters)
-    dec_ops.COUNTER.launches = launches
     plain_ms = cuda_time_ms(lambda: dec_ops.flash_decode(
         q, kc, vc, lengths, impl="reference"), max(iters // 10, 5))
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
@@ -507,10 +576,8 @@ def time_flash(torch, flash_ops, q, k, v, causal=True, window=0, iters=50):
     if window:
         mask = mask & (kp > qp - window)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    launches = flash_ops.COUNTER.launches
     ms = cuda_time_ms(lambda: flash_ops.flash_attention_cuda(
         q, k, v, causal=causal, window=window), iters)
-    flash_ops.COUNTER.launches = launches
     plain_ms = cuda_time_ms(lambda: flash_ops.flash_attention(
         q, k, v, causal=causal, window=window, impl="reference"),
         max(iters // 5, 5))

@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -75,39 +75,16 @@ class CudaLibrary:
         return [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, f"-I{CSRC}",
                 "-o", str(out), str(self.source)]
 
-    def start_build(self) -> Optional[Callable[[], None]]:
-        """Start nvcc in the background if the library is not built yet;
-        returns a function that waits for it (None if nothing to build)."""
-        out = self.target()
-        if out.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(self.compile_command(tmp),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-
-        def wait() -> None:
-            log, _ = proc.communicate()
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = log
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed on {self.source.name} "
-                    f"(exit {proc.returncode}):\n{log}")
-            os.replace(tmp, out)       # atomic: concurrent builders agree
-
-        return wait
-
     def load(self) -> ctypes.CDLL:
+        """Build the library if it is not built yet, then load it once.
+        Libraries of different sources may load from several threads at
+        once, so their nvcc runs overlap."""
         with self._lock:
             if self._lib is None:
-                wait = self.start_build()
-                if wait is not None:
-                    wait()
-                lib = ctypes.CDLL(str(self.target()))
+                out = self.target()
+                if not out.exists():
+                    self._build(out)
+                lib = ctypes.CDLL(str(out))
                 for name, argtypes in self.signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = list(argtypes)
@@ -115,29 +92,20 @@ class CudaLibrary:
                 self._lib = lib
             return self._lib
 
-
-def build_all(libs: Sequence[CudaLibrary]) -> None:
-    """Compile every library at once (one nvcc per source, in parallel),
-    then load each."""
-    waits = [w for w in (lib.start_build() for lib in libs) if w is not None]
-    errors = []
-    for w in waits:
-        try:
-            w()
-        except RuntimeError as e:      # report every failed source
-            errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    for lib in libs:
-        lib.load()
-
-
-class LaunchCounter:
-    """Launches of one CUDA kernel, counted by its wrapper where it
-    launches (runs of the plain version do not count)."""
-
-    def __init__(self):
-        self.launches = 0
+    def _build(self, out: Path) -> None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(self.compile_command(tmp),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {self.source.name} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)           # atomic: concurrent builders agree
 
 
 def check(err: int, what: str) -> None:

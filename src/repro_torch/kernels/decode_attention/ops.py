@@ -26,8 +26,9 @@ LIB = build.CudaLibrary("decode_attention.cu", {
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 
-
-COUNTER = build.LaunchCounter()
+# Launches of the kernel, counted where the wrapper launches it (runs of
+# the plain version do not count).
+LAUNCHES = 0
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
@@ -35,6 +36,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     """Launch the kernel.  q: [B,1,H,hd]; k_cache,v_cache: [B,Smax,KV,hd]
     (model layout, read through strides); lengths: int32 [B].
     Returns out [B,1,H,hd] (and lse [B,H,1] fp32)."""
+    global LAUNCHES
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in build.DTYPE_CODE:
@@ -65,7 +67,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
         build.DTYPE_CODE[q.dtype], B, H, KV, Smax, hd, strides, hd ** -0.5,
         build.stream_ptr(q.device))
     build.check(err, "decode_attention")
-    COUNTER.launches += 1
+    LAUNCHES += 1
     return (out, lse) if return_lse else out
 
 

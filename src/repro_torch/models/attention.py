@@ -6,8 +6,10 @@ hand-written CUDA kernel:
   * full-sequence passes (train / prefill mode) run
     ``kernels/flash_attention`` when the tensors lie on a CUDA device; on
     the CPU they run the chunked grouped-einsum path of the JAX package;
-  * single-token decode steps, inside ``use_decode_impl("auto")`` (which
-    the continuous batcher arms), run ``kernels/decode_attention``.
+  * single-token decode steps run ``kernels/decode_attention`` on a CUDA
+    device; on the CPU they do so inside ``use_decode_impl("auto")``
+    (which the continuous batcher arms) and otherwise take the dense
+    grouped einsum, as the JAX package does.
 
 Decode with several new tokens per row (chunked prefill) keeps the dense
 ``_attn_block``: its per-row query offsets do not fit the flash kernel's
@@ -25,10 +27,12 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
 
-# Single-token decode attention implementation: "dense" is the grouped
-# einsum below; "auto" routes through kernels/decode_attention (the kernel
-# on CUDA, its plain version on CPU); "reference" takes the plain version
-# on any device.  The continuous batcher arms it around its decode step.
+# Single-token decode attention implementation on CPU tensors: "dense" is
+# the grouped einsum below; "auto" routes through the plain version of
+# kernels/decode_attention.  CUDA tensors always launch the kernel, except
+# under "reference", which takes the plain version on any device (for
+# comparisons on the card).  The continuous batcher arms it around its
+# decode step.
 _DECODE_IMPL = "dense"
 # Full-sequence passes on CUDA: "auto" launches kernels/flash_attention,
 # "reference" takes its plain version (for comparisons on the card).
@@ -96,18 +100,17 @@ def _attn_block(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
     return out.to(q.dtype).reshape(B, Sq, H, hd)
 
 
-def causal_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
-                     chunk: int = 1024, causal: bool = True):
+def causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024,
+                     causal: bool = True):
     """Attention over full sequences.
 
-    q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd].  ``q_offset`` is the absolute
-    position of q[0] relative to kv[0].  On CUDA (with the kernel's own
-    offset Skv - Sq) this is one launch of the flash attention kernel; on
-    the CPU it runs dense blocks of ``chunk`` query rows.
+    q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd]; q[i] sits at kv position
+    i + Skv - Sq.  On CUDA this is one launch of the flash attention
+    kernel; on the CPU it runs dense blocks of ``chunk`` query rows.
     """
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
-    if q.is_cuda and q_offset == Skv - Sq:
+    if q.is_cuda:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window, impl=_FLASH_IMPL)
     kv_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)
@@ -115,7 +118,7 @@ def causal_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
     for c0 in range(0, Sq, chunk):
         qc = q[:, c0:c0 + chunk]
         q_pos = torch.arange(c0, c0 + qc.shape[1], dtype=torch.int32,
-                             device=q.device) + q_offset
+                             device=q.device) + (Skv - Sq)
         outs.append(_attn_block(qc, k, v, q_pos, kv_pos, causal=causal,
                                 window=window))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -129,9 +132,9 @@ def decode_attention(q, k_cache, v_cache, lengths):
     written; lengths: [B], valid tokens *including* the new ones.
     """
     B, T, H, hd = q.shape
-    if T == 1 and _DECODE_IMPL != "dense":
-        return dec_ops.flash_decode(q, k_cache, v_cache, lengths,
-                                    impl=_DECODE_IMPL)
+    if T == 1 and (q.is_cuda or _DECODE_IMPL != "dense"):
+        impl = "reference" if _DECODE_IMPL == "reference" else "auto"
+        return dec_ops.flash_decode(q, k_cache, v_cache, lengths, impl=impl)
     Smax = k_cache.shape[1]
     kv_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)[None]
     q_pos = ((lengths[:, None] - T)

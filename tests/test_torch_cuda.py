@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
        torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
@@ -45,12 +46,12 @@ def test_decode_kernel(cuda, dtype, hd, G):
                             (B, Smax, KV, hd)], dtype, cuda)
     lengths = torch.tensor([1, 63, 64, 65, 300], dtype=torch.int32,
                            device=cuda)
-    before = dec_ops.COUNTER.launches
+    before = dec_ops.LAUNCHES
     out, lse = dec_ops.flash_decode(q, kc, vc, lengths, return_lse=True)
     ref, ref_lse = dec_ops.flash_decode(q, kc, vc, lengths,
                                         impl="reference", return_lse=True)
     torch.cuda.synchronize()
-    assert dec_ops.COUNTER.launches == before + 1
+    assert dec_ops.LAUNCHES == before + 1
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, **TOL[torch.float32])
     again = dec_ops.flash_decode(q, kc, vc, lengths)
@@ -89,12 +90,12 @@ def test_flash_kernel(cuda, dtype, Sq, Skv, window, causal):
     B, H, KV, hd = 2, 8, 2, 128
     q, k, v = _randn(14, [(B, Sq, H, hd), (B, Skv, KV, hd),
                           (B, Skv, KV, hd)], dtype, cuda)
-    before = flash_ops.COUNTER.launches
+    before = flash_ops.LAUNCHES
     out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     ref = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                     impl="reference")
     torch.cuda.synchronize()
-    assert flash_ops.COUNTER.launches == before + 1
+    assert flash_ops.LAUNCHES == before + 1
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
     assert torch.equal(flash_ops.flash_attention(q, k, v, causal=causal,
                                                  window=window), out)
@@ -107,4 +108,31 @@ def test_flash_kernel_head_dim_64_and_strided_q(cuda):
     out = flash_ops.flash_attention(q, k, v)
     ref = flash_ops.flash_attention(q, k, v, impl="reference")
     torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("impl", ["dense", "auto"])
+def test_model_attention_launches_the_kernels(cuda, impl):
+    """On the card the model's attention always goes through the kernels:
+    a full-sequence pass launches K2, a single-token decode step launches
+    K1 whatever ``use_decode_impl`` says; only "reference" (used for
+    comparisons) takes the plain versions."""
+    B, S, Smax, H, KV, hd = 2, 33, 64, 8, 2, 128
+    q, k, v, q1, kc, vc = _randn(16, [
+        (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, 1, H, hd),
+        (B, Smax, KV, hd), (B, Smax, KV, hd)], torch.bfloat16, cuda)
+    lengths = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    n_flash, n_dec = flash_ops.LAUNCHES, dec_ops.LAUNCHES
+    out = attention.causal_attention(q, k, v)
+    with attention.use_decode_impl(impl):
+        dec = attention.decode_attention(q1, kc, vc, lengths)
+    assert (flash_ops.LAUNCHES, dec_ops.LAUNCHES) == (n_flash + 1, n_dec + 1)
+    with attention.use_flash_impl("reference"), \
+            attention.use_decode_impl("reference"):
+        ref = attention.causal_attention(q, k, v)
+        dec_ref = attention.decode_attention(q1, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert (flash_ops.LAUNCHES, dec_ops.LAUNCHES) == (n_flash + 1, n_dec + 1)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(dec.float(), dec_ref.float(),
                                **TOL[torch.bfloat16])

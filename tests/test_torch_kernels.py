@@ -24,12 +24,14 @@ from repro.kernels.flash_attention.kernel import \
     flash_attention_kernel  # noqa: E402
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as j_flash_ref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, decode_attention_with_lse_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "bfloat16": dict(rtol=5e-2, atol=5e-2)}
@@ -95,7 +97,7 @@ def test_flash_decode_model_layout():
     _, (q, kc, vc) = _inputs(5, [(B, 1, H, hd), (B, Smax, KV, hd),
                                  (B, Smax, KV, hd)], "float32")
     lengths = torch.tensor([3, 40], dtype=torch.int32)
-    before = dec_ops.COUNTER.launches
+    before = dec_ops.LAUNCHES
     out = dec_ops.flash_decode(q, kc, vc, lengths)
     ref = decode_attention_ref(q[:, 0], kc.transpose(1, 2),
                                vc.transpose(1, 2), lengths)
@@ -106,7 +108,7 @@ def test_flash_decode_model_layout():
         q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lengths)
     torch.testing.assert_close(out2[:, 0], ref2, rtol=0, atol=0)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
-    assert dec_ops.COUNTER.launches == before
+    assert dec_ops.LAUNCHES == before
     with pytest.raises(ValueError):
         dec_ops.flash_decode(q, kc, vc, lengths, impl="pallas")
 
@@ -172,10 +174,32 @@ def test_flash_plain_matches_jax(B, H, KV, Sq, Skv, hd, causal, window,
                                    block_q=16, block_k=16, interpret=True)
     np.testing.assert_allclose(_np(plain), _np(p_out), **TOL[dtype])
     # model-layout wrapper: [B,S,heads,hd] in and out, plain on the CPU
-    before = flash_ops.COUNTER.launches
+    before = flash_ops.LAUNCHES
     wrapped = flash_ops.flash_attention(
         tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
         causal=causal, window=window)
     torch.testing.assert_close(wrapped.transpose(1, 2), plain, rtol=0,
                                atol=0)
-    assert flash_ops.COUNTER.launches == before
+    assert flash_ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,window,chunk", [
+    (40, 40, 0, 1024), (24, 56, 0, 1024), (48, 48, 16, 1024),
+    (40, 72, 0, 16)])
+def test_model_causal_attention_matches_jax(Sq, Skv, window, chunk, dtype):
+    """The model's full-sequence attention on the CPU (the path K2 takes on
+    the card) places q[i] at kv position i + Skv - Sq, as the JAX
+    ``causal_attention`` does with ``q_offset = Skv - Sq``, also when it
+    runs in query chunks."""
+    B, H, KV, hd = 2, 8, 2, 16
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        Sq + Skv, [(B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)],
+        dtype)
+    before = flash_ops.LAUNCHES
+    out = attention.causal_attention(tq, tk, tv, window=window, chunk=chunk)
+    j_out = jattn.causal_attention(jq, jk, jv, q_offset=Skv - Sq,
+                                   window=window, chunk=chunk)
+    assert out.dtype == tq.dtype and out.shape == (B, Sq, H, hd)
+    np.testing.assert_allclose(_np(out), _np(j_out), **TOL[dtype])
+    assert flash_ops.LAUNCHES == before
