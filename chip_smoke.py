@@ -12,9 +12,12 @@ batch (SCORE, COMPLETE, CLASSIFY, EMBED) with proxy-8b at full width
 checks that the served path launched each kernel the expected number of
 times and that its results are well formed, holds what goes through the
 kernels (every decode step's logits, CLASSIFY's label logprobs, EMBED's
-vectors) to the same computed through the plain attention, then times
-each kernel beside its plain version, its bound and one PyTorch library
-call.  The last line is a JSON
+vectors) to the same computed through the plain attention, then drives
+the semantic index over the same engine (CortexClient -> RequestPipeline
+-> Scheduler -> EMBED -> SemanticIndexManager -> IvfFlatIndex -> the
+similarity top-k kernel) and holds its searches to a plain-path manager
+over the same store.  Last it times each kernel beside its plain
+version, its bound and one PyTorch library call.  The last line is a JSON
 object with ``"ok": true``; any failed check exits non-zero without it.
 It needs no network and imports nothing of JAX.
 """
@@ -37,6 +40,11 @@ TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
 # a few times the readings on the H100 (PERF.md, section 6)
 SERVE_TOL = {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
              "embed_cosine": 0.9995}
+# K3 (similarity top-k, fp32): values within TOPK_TOL of the plain
+# version; ids equal except between rows whose plain scores lie within
+# TOPK_TOL of each other (fp32 sums in another order); on sign vectors,
+# where every score is exact, ids equal with no exception
+TOPK_TOL = 1e-5
 SEED = 0
 N_LAYERS = 32
 
@@ -153,14 +161,14 @@ def flash_bound(q, k, causal, window):
 # ---------------------------------------------------------------------------
 
 
-def build_kernels(dec_ops, flash_ops):
+def build_kernels(*kernel_ops):
     t0 = time.perf_counter()
-    libs = (dec_ops.LIB, flash_ops.LIB)
+    libs = [m.LIB for m in kernel_ops]
     with ThreadPoolExecutor(len(libs)) as pool:     # one nvcc per source
         list(pool.map(lambda lib: lib.load(), libs))
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{dec_ops.LIB.source.name} + {flash_ops.LIB.source.name} "
-          "(nvcc, sm_90a, in parallel)")
+          + " + ".join(lib.source.name for lib in libs)
+          + " (nvcc, sm_90a, in parallel)")
     for lib in libs:
         regs = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -473,6 +481,257 @@ def serve_and_check(torch, eng, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K3: similarity top-k, and the semantic index over the served engine
+# ---------------------------------------------------------------------------
+
+
+def topk_gate(torch, what, vals, idx, rv, ri, exact=False):
+    """Hold K3's (vals, idx) [Q,k] to the plain version's (rv, ri), which
+    carries one column more unless ``exact``.  Prints each id flip with
+    its margin and fails on a flip outside TOPK_TOL (any flip if
+    ``exact``) or a value off by more; returns max |value error|."""
+    from repro_torch.kernels.similarity_topk.ref import topk_flips
+    vals, idx, rv, ri = (torch.as_tensor(x).cpu() for x in (vals, idx, rv,
+                                                           ri))
+    k = idx.shape[1]
+    want = rv[:, :k].double()
+    both_inf = torch.isinf(want) & (vals.double() == want)
+    err = torch.where(both_inf, torch.zeros_like(want),
+                      (vals.double() - want).abs())
+    err = float(err.max()) if err.numel() else 0.0
+    flips = topk_flips(idx, rv, ri)
+    for r, pos, got, exp, margin in flips:
+        print(f"  K3 flip {what}: query {r} position {pos}: kernel id "
+              f"{got}, plain id {exp}, plain margin {margin:.3g}")
+    if exact and (flips or err):
+        fail(f"K3 {what}: {len(flips)} ids / values differ from the plain "
+             "version on exact scores")
+    bad = [f for f in flips if not f[-1] < TOPK_TOL]
+    if bad or not err <= TOPK_TOL:
+        fail(f"K3 {what}: max |err| {err:.3g}, {len(bad)} flips outside "
+             f"margin {TOPK_TOL}")
+    return err, len(flips)
+
+
+def topk_case(torch, topk_ops, what, q, c, k, exact=False):
+    """K3 on (q, c) against its plain version on the same inputs, and
+    against itself: a second launch must give the same bits."""
+    vals, idx = topk_ops.similarity_topk(q, c, k)
+    again = topk_ops.similarity_topk(q, c, k)
+    rv, ri = topk_ops.similarity_topk(q, c, k + (not exact),
+                                      impl="reference")
+    torch.cuda.synchronize()
+    if not (torch.equal(vals, again[0]) and torch.equal(idx, again[1])):
+        fail(f"K3 {what}: two launches on the same inputs differ")
+    err, flips = topk_gate(torch, what, vals, idx, rv, ri, exact=exact)
+    print(f"K3 topk {what}: max|vals-plain|={err:.3g} (tol {TOPK_TOL}), "
+          f"{flips} id flips within margin, repeat bitwise equal")
+    return err
+
+
+def check_topk(torch, topk_ops, dev):
+    """K3 at the shapes of tests/test_kernels.py (fp32 and bf16 inputs), a
+    k > N case, both selection paths, and sign vectors whose scores are
+    exact: there every tie is decided by the tie rule alone."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for Q, N, D, k in ((13, 201, 48, 5), (32, 512, 64, 17),
+                           (1, 1000, 32, 1), (64, 64, 128, 64),
+                           (3, 4, 16, 7), (24, 5000, 64, 300)):
+            q = torch.randn((Q, D), generator=gen, device=dev).to(dtype)
+            c = torch.randn((N, D), generator=gen, device=dev).to(dtype)
+            err = max(err, topk_case(torch, topk_ops,
+                                     f"{name} Q={Q} N={N} D={D} k={k}",
+                                     q, c, k))
+    signs = (torch.randint(0, 2, (2000, 16), generator=gen, device=dev)
+             * 2 - 1).float()
+    signs[1000:1020] = signs[7]                    # exact duplicate rows
+    q = torch.cat([signs[:8], (torch.randint(
+        0, 2, (56, 16), generator=gen, device=dev) * 2 - 1).float()])
+    for k in (1, 8, 32, 100, 128, 129, 2000):
+        err = max(err, topk_case(torch, topk_ops,
+                                 f"sign vectors Q=64 N=2000 D=16 k={k}",
+                                 q, signs, k, exact=True))
+    return err
+
+
+def index_texts(n, seed):
+    """``n`` distinct short catalog-like texts, from ``seed``."""
+    import random
+    rng = random.Random(seed)
+    items = ["laptop", "headphones", "kettle", "bicycle", "novel", "camera",
+             "jacket", "printer", "guitar", "lamp", "backpack", "monitor"]
+    traits = ["quiet", "cheap", "sturdy", "broken on arrival", "light",
+              "fast", "late", "well made", "overpriced", "excellent"]
+    out = set()
+    while len(out) < n:
+        out.add(f"review {rng.randrange(10 ** 6)}: the {rng.choice(items)} "
+                f"was {rng.choice(traits)}")
+    return sorted(out)
+
+
+def index_path(torch, eng, errs):
+    """Drive the semantic index on the served engine at full width, hold
+    every search to a plain-path manager sharing the store, and check K3's
+    launch count.  Returns the kernels-line row of K3."""
+    from repro_torch.inference.api import CortexClient
+    from repro_torch.inference.pipeline import PipelineConfig
+    from repro_torch.inference.scheduler import Scheduler
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    from repro_torch.semindex import SemanticIndexManager, SemIndexConfig
+    from repro_torch.semindex.index import _normalize
+    # make_engine_client's three steps, over the engine already loaded;
+    # EMBED goes to the served model, not the default embedder name
+    sched = Scheduler()
+    sched.register(eng)
+    client = CortexClient(sched, default_model="proxy-8b",
+                          proxy_model="proxy-8b", embed_model="proxy-8b",
+                          pipeline=PipelineConfig())
+    cfg = SemIndexConfig(dim=64)
+    texts = index_texts(512, SEED + 3)
+    queries = index_texts(576, SEED + 4)[-64:]
+    queries = [f"looking for: {t}" for t in queries]
+    mgr = SemanticIndexManager(cfg)
+    col = "reviews.text"
+    k_flat, k_cand = 8, 32
+
+    topk_ops.LAUNCHES = 0
+    flash_ops.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = mgr.ensure_index(client, col, texts)
+    t_build = time.perf_counter() - t0
+    qv = mgr.embed_texts(client, queries)
+    corpus = mgr.embed_texts(client, texts)
+    k2_embed = flash_ops.LAUNCHES
+    k3_before = topk_ops.LAUNCHES
+    t0 = time.perf_counter()
+    flat = mgr.search(col, qv, k_flat)
+    ivf = mgr.search(col, qv, k_flat, exact=False)
+    cand = mgr.topk_candidates(qv, corpus, k_cand)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = topk_ops.LAUNCHES
+    # the probe set, from the same kernel (reads done after the counts)
+    _, probe = index._topk(index._tensor(_normalize(qv)), index._centroids,
+                           cfg.nprobe)
+    cells = {int(c) for c in set(probe.ravel().tolist())
+             if len(index.cells[c])}
+    expect = 1 + (1 + len(cells)) + 1
+    print(f"index: {len(texts)} texts embedded by {eng.cfg.name} at full "
+          f"width and indexed in {t_build:.2f} s (nlist {index.nlist}, "
+          f"{sum(len(c) for c in index.cells)} vectors, cells of "
+          f"{min(len(c) for c in index.cells)}-"
+          f"{max(len(c) for c in index.cells)}); {len(queries)} queries; "
+          f"flat k={k_flat}, IVF k={k_flat} nprobe {cfg.nprobe} over "
+          f"{len(cells)} probed cells, topk_candidates k={k_cand} in "
+          f"{t_search * 1e3:.1f} ms")
+    print(f"index launches: K3 {launches} (before the searches "
+          f"{k3_before}), expected {expect} (flat 1, IVF 1 probe + "
+          f"{len(cells)} cells, candidates 1); K2 {k2_embed} over the "
+          "EMBED passes")
+    if launches != expect or k3_before != 0:
+        fail("K3 launch count differs from the searches' calls")
+    if k2_embed == 0 or k2_embed % eng.cfg.num_layers:
+        fail(f"the index's EMBED passes launched K2 {k2_embed} times")
+    if not (index.vectors.is_cuda and qv.shape == (64, cfg.dim)
+            and bool(torch.isfinite(torch.from_numpy(qv)).all())):
+        fail("the index corpus is not on the card or the queries are bad")
+
+    # the plain path: a second manager on the same store, plain top-k
+    calls = dict(client.calls_by_model)
+    ref = SemanticIndexManager(SemIndexConfig(dim=64, impl="reference"),
+                               store=mgr.store)
+    ref_index = ref.ensure_index(client, col, texts)
+    ref_qv = ref.embed_texts(client, queries)
+    if (ref.snapshot()["embed_llm_calls"] != 0
+            or client.calls_by_model != calls):
+        fail("the plain-path manager dispatched EMBED: the store is cold")
+    if not ((ref_qv == qv).all() and (ref_index.centroids
+                                      == index.centroids).all()):
+        fail("the two managers disagree on vectors or centroids")
+    err = 0.0
+    for what, got, want in (
+            ("served flat search", flat, ref.search(col, qv, k_flat + 1)),
+            ("served IVF search", ivf,
+             ref.search(col, qv, k_flat + 1, exact=False)),
+            ("served topk_candidates", cand,
+             ref.topk_candidates(qv, corpus, k_cand + 1))):
+        e, n_flips = topk_gate(torch, what, *got, *want)
+        print(f"K3 {what}: max|vals-plain|={e:.3g} (tol {TOPK_TOL}), "
+              f"{n_flips} id flips within margin; top-1 cosine mean "
+              f"{float(got[0][:, 0].mean()):.6f}, k-th "
+              f"{float(got[0][:, -1].mean()):.6f}")
+        err = max(err, e)
+    print(f"index snapshot: {mgr.snapshot()}")
+    print(f"plain-path snapshot: {ref.snapshot()}")
+    print(f"client: {client.snapshot()}")
+
+    # time K3 at the served flat search's shape
+    q = topk_ops.l2_normalize(index._tensor(_normalize(qv)))
+    c = topk_ops.l2_normalize(index.vectors)
+    t = time_topk(torch, topk_ops, "served flat search", q, c, k_flat)
+    errs["similarity_topk"] = max(errs["similarity_topk"], err,
+                                  t.pop("max_abs_err"))
+    return {"name": "similarity_topk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/similarity_topk.cu",
+            "replaces": "src/repro/kernels/similarity_topk/kernel.py:69",
+            "launches": launches,
+            "max_abs_err": errs["similarity_topk"], **t}
+
+
+def topk_bound(Q, N, D, k):
+    nbytes = 4.0 * (Q * D + N * D) + 8.0 * Q * k  # q, c in; vals, idx out
+    return bound(nbytes, 2.0 * Q * N * D, "float32")
+
+
+def time_topk(torch, topk_ops, what, q, c, k, iters=20, plain_rows=None):
+    """K3 on unit fp32 rows beside its plain version, its bound and
+    ``torch.topk(q @ c.T, k)``.  ``plain_rows`` cuts the plain version
+    (and its comparison) to the first queries, where its [Q, N] sort
+    would not fit."""
+    Q, D = q.shape
+    N = c.shape[0]
+    qp = q[:plain_rows] if plain_rows else q
+    vals, idx = topk_ops.similarity_topk_cuda(q, c, k)
+    rv, ri = topk_ops.similarity_topk(qp, c, k + 1, impl="reference")
+    torch.cuda.synchronize()
+    err, flips = topk_gate(torch, what, vals[:qp.shape[0]],
+                           idx[:qp.shape[0]], rv, ri)
+    ms = cuda_time_ms(lambda: topk_ops.similarity_topk_cuda(q, c, k), iters)
+    plain_ms = cuda_time_ms(lambda: topk_ops.similarity_topk(
+        qp, c, k, impl="reference"), max(iters // 4, 3), warmup=1)
+    lib_ms = cuda_time_ms(lambda: torch.topk(q @ c.T, k), iters)
+    b_ms, b_by = topk_bound(Q, N, D, k)
+    cut = f" (plain on the first {qp.shape[0]} queries)" if plain_rows else ""
+    print(f"time K3 {what} Q={Q} N={N} D={D} k={k} fp32: kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms{cut}, torch.topk(q@c.T) "
+          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); max|err| "
+          f"{err:.3g}, {flips} flips within margin")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def topk_full_shapes(torch, topk_ops, dev):
+    """K3 at two production shapes over a one-million-row corpus: join
+    blocking at the default dim (A) and ORDER BY ... LIMIT 100 at a wide
+    embedder's width (B)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for what, Q, N, D, k, rows in (("full A", 1024, 1 << 20, 64, 8, 64),
+                                   ("full B", 16, 1 << 20, 1024, 100, None)):
+        q = topk_ops.l2_normalize(torch.randn((Q, D), generator=gen,
+                                              device=dev))
+        c = topk_ops.l2_normalize(torch.randn((N, D), generator=gen,
+                                              device=dev))
+        time_topk(torch, topk_ops, what, q, c, k, iters=10, plain_rows=rows)
+        del q, c
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -494,11 +753,13 @@ def main() -> int:
 
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
     from repro_torch.inference.engine import TorchInferenceEngine
 
     # 1-2. build, then hold each kernel against its plain version
-    build_kernels(dec_ops, flash_ops)
+    build_kernels(dec_ops, flash_ops, topk_ops)
     errs = check_kernels(torch, dec_ops, flash_ops, dev)
+    errs["similarity_topk"] = check_topk(torch, topk_ops, dev)
 
     # 3. serve one mixed batch with proxy-8b at full width
     t0 = time.perf_counter()
@@ -515,7 +776,12 @@ def main() -> int:
     if cfg.num_layers != N_LAYERS or cfg.d_model != 4096:
         fail("proxy-8b is not at full width")
     rows = serve_and_check(torch, eng, errs)
+    # 7. the semantic index on the same engine, through K3
+    rows.append(index_path(torch, eng, errs))
     long_shapes(torch, dec_ops, flash_ops, dev)
+    del eng
+    torch.cuda.empty_cache()
+    topk_full_shapes(torch, topk_ops, dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))

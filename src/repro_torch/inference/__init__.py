@@ -1,2 +1,4 @@
-"""Inference engine of the PyTorch port: paged KV, continuous batching,
-the engine behind the ``submit_batch`` backend protocol."""
+"""Inference layer of the PyTorch port: the engine (paged KV, continuous
+batching) behind the ``submit_batch`` backend protocol, the calibrated
+simulator, and the client stack in front of both (``CortexClient`` ->
+``RequestPipeline`` -> ``Scheduler``)."""

@@ -1,0 +1,655 @@
+"""Batched async request pipeline — the semantic-operator runtime core.
+
+Every AI call site in the engine (filters, cascades, joins, projections,
+aggregations) funnels `Request`s through one `RequestPipeline` instead of
+issuing blocking per-call-site scheduler submits.  The pipeline
+
+  * **coalesces** micro-batches across chunks / predicates / operators
+    into right-sized engine batches: requests accumulate in per-model
+    queues and are dispatched together, so ten 50-row label chunks become
+    one 500-row engine batch;
+  * **deduplicates** identical work: two requests with the same
+    ``(model, kind, prompt, labels, multi_label, max_tokens)`` fingerprint
+    share a single engine execution.  Duplicates arriving while the
+    primary is queued attach to it in-flight; duplicates arriving after it
+    completed are served from a bounded **LRU** result cache with an
+    optional TTL (repeated prompts recur across adaptive-reorder chunks,
+    hybrid-join passes, cascade escalation, and — under the serving
+    runtime — across concurrent queries and tenants, where a hit from a
+    different session counts as a *cross-query* hit);
+  * **retries transient faults**: a dispatch that fails with an
+    `EngineFailure` / `SchedulerError` is re-dispatched with exponential
+    backoff up to ``PipelineConfig.max_retries`` times; a request that
+    exhausts its retries resolves its futures with a `RequestFailed`
+    error — never a silent drop, never a hang, and never a double bill
+    (metering happens only on the one successful dispatch);
+  * **meters honestly**: only dispatched requests reach the
+    ``on_dispatch`` hook (the CortexClient's credit meter), so dedup
+    savings show up directly in AI-credit telemetry.  Under the serving
+    runtime each queue item carries the **owner** (session) that caused
+    it, and per-owner meters registered via `register_meter` are billed
+    at dispatch — total dispatch spend always equals the sum of owner
+    bills plus the default-hook bill;
+  * **reports**: batch-size histogram, dedup/cache/cross-query hit
+    counts, queue-wait seconds, retry/failure counts, and flush causes
+    (size vs barrier) via `PipelineStats`.
+
+Flush policy: a model queue flushes when it reaches ``max_batch``
+requests (*size*), or when a future's ``result()`` is demanded or
+``flush()`` is called (*barrier*).  A ``result()`` barrier is scoped to
+the future's own model queue — that always resolves it, while other
+models' (and other sessions') queues keep coalescing.
+``flush(owner=...)`` is the serving engine's per-session barrier: it
+dispatches only that owner's queued items.
+
+Concurrency model: **single-dispatcher via one reentrant lock**.  Every
+public entry point (submit, flush, cancel) acquires ``self._lock`` for
+its full duration, including the engine dispatch — so queue, dedup
+table, cache and stats mutations are always serialized, duplicate
+futures can never attach to an item mid-resolution, and a ``result()``
+call racing a dispatch simply blocks on the lock until its future is
+resolved.  Concurrency wins come from coalescing and caching *across*
+the querying threads, not from parallel dispatch; the backends model
+batch-parallel execution internally.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.inference.backend import EngineFailure, Request, Result
+from repro_torch.inference.scheduler import Scheduler, SchedulerError
+from repro_torch.obs.metrics import locked_snapshot
+from repro_torch.obs.trace import active_tracer
+
+
+class RequestFailed(RuntimeError):
+    """A request exhausted the pipeline's bounded retries (or was
+    cancelled before dispatch); raised by ``ResultFuture.result()``."""
+
+
+def request_fingerprint(r: Request) -> Tuple:
+    """Dedup key: everything that determines the engine's answer.
+
+    Real engines answer from (model, kind, prompt, labels, max_tokens)
+    alone, but the calibrated simulator also grounds results in request
+    metadata (truth, difficulty, bias knobs) — so the metadata is folded
+    into the key.  In every intended dedup case (re-scored rows across
+    adaptive-reorder chunks, cascade escalation, repeated queries) the
+    duplicate carries the same row metadata, so this only prevents
+    *false* sharing between distinct rows with identical text.
+    """
+    md = tuple(sorted((k, str(v)) for k, v in r.metadata.items())) \
+        if r.metadata else ()
+    return (r.model, r.kind, r.prompt, r.labels, r.multi_label,
+            r.max_tokens, md)
+
+
+class ResultFuture:
+    """Handle for one in-flight request.  ``result()`` forces a barrier
+    flush of the owning pipeline if the request has not been dispatched.
+    A future whose request was cancelled before dispatch (see
+    `RequestPipeline.cancel`) or permanently failed (retries exhausted)
+    raises `RequestFailed` on ``result()``."""
+
+    __slots__ = ("_pipeline", "_result", "_cancelled", "_error", "_model")
+
+    def __init__(self, pipeline: Optional["RequestPipeline"] = None,
+                 model: Optional[str] = None):
+        self._pipeline = pipeline
+        self._result: Optional[Result] = None
+        self._cancelled = False
+        self._error: Optional[Exception] = None
+        self._model = model           # scopes the barrier flush
+
+    @classmethod
+    def resolved(cls, result: Result) -> "ResultFuture":
+        f = cls(None)
+        f._result = result
+        return f
+
+    def done(self) -> bool:
+        return self._result is not None or self._error is not None
+
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+    def exception(self) -> Optional[Exception]:
+        return self._error
+
+    def _resolve(self, result: Result) -> None:
+        self._result = result
+
+    def _fail(self, error: Exception) -> None:
+        self._error = error
+
+    def result(self) -> Result:
+        if self._cancelled:
+            raise RequestFailed("request was cancelled before dispatch")
+        if self._error is not None:
+            raise self._error
+        if self._result is None:
+            if self._pipeline is None:
+                raise RuntimeError("unresolved future with no pipeline")
+            # barrier scoped to this request's model queue: other
+            # models' (and on a shared pipeline, other sessions')
+            # queues keep coalescing
+            self._pipeline.flush(self._model)
+            if self._result is None and self._error is None:
+                self._pipeline.flush()    # defensive full barrier
+        if self._error is not None:
+            raise self._error
+        if self._result is None:      # pragma: no cover - defensive
+            raise RuntimeError("pipeline flush did not resolve future")
+        return self._result
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    max_batch: int = 512          # flush-on-size threshold / dispatch size
+    dedup: bool = True
+    cache_size: int = 65536       # memoized results (LRU eviction)
+    # seconds a memoized result stays servable; None = no expiry.  The
+    # serving runtime sets this so cross-query answers age out instead
+    # of serving stale results forever.
+    cache_ttl_s: Optional[float] = None
+    # transient-fault policy: a failed dispatch (EngineFailure or
+    # SchedulerError, e.g. every replica faulted) is re-dispatched up to
+    # max_retries more times with exponential backoff; after that the
+    # affected futures resolve with RequestFailed (clean error, no hang).
+    # NB: the backoff sleep runs inside the single-dispatcher lock, so
+    # it pauses every session — keep base * 2^max_retries small
+    max_retries: int = 2
+    retry_backoff_s: float = 0.002       # base backoff (doubles per retry)
+    retry_backoff_cap_s: float = 0.25    # backoff ceiling
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    submitted: int = 0            # requests entering the pipeline
+    dispatched: int = 0           # requests actually sent to the scheduler
+    batches: int = 0              # scheduler submits issued
+    dedup_hits: int = 0           # total coalesced duplicates (both kinds)
+    inflight_hits: int = 0        # attached to a queued identical request
+    cache_hits: int = 0           # served from the memoized result cache
+    cross_query_hits: int = 0     # cache/in-flight hits from another owner
+    cache_expired: int = 0        # memoized results evicted past their TTL
+    flushes_on_size: int = 0
+    flushes_on_barrier: int = 0
+    cancelled: int = 0            # queued requests cancelled pre-dispatch
+    retries: int = 0              # batch re-dispatches after a fault
+    failures: int = 0             # requests that exhausted their retries
+    queue_wait_s: float = 0.0     # sum over dispatched reqs of queue time
+    batch_size_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # submissions per request kind (score/classify/complete): lets the
+    # stats store / docs attribute dedup wins to operator families
+    kind_hist: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def dedup_hit_rate(self) -> float:
+        return self.dedup_hits / self.submitted if self.submitted else 0.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["batch_size_hist"] = dict(self.batch_size_hist)
+        return d
+
+    def delta(self, before: Dict[str, Any]) -> Dict[str, Any]:
+        """Per-query telemetry: stats accumulated since ``before``."""
+        now = self.snapshot()
+        out: Dict[str, Any] = {}
+        for k, v in now.items():
+            if isinstance(v, dict):
+                prev = before.get(k, {})
+                out[k] = {sz: n - prev.get(sz, 0) for sz, n in v.items()
+                          if n - prev.get(sz, 0)}
+            else:
+                out[k] = v - before.get(k, 0)
+        sub = out.get("submitted", 0)
+        out["dedup_hit_rate"] = out["dedup_hits"] / sub if sub else 0.0
+        return out
+
+
+class _QueueItem:
+    __slots__ = ("request", "futures", "enqueued_at", "owner", "owners",
+                 "trace_t0")
+
+    def __init__(self, request: Request, future: ResultFuture, t: float,
+                 owner: Optional[str] = None):
+        self.request = request
+        self.futures = [future]
+        self.enqueued_at = t
+        self.owner = owner            # billed at dispatch (primary submitter)
+        self.owners = {owner}         # every owner with an attached future
+        # submit timestamp on the *tracer's* clock (None untraced) — the
+        # dispatch span's queue_wait_s must stay deterministic under an
+        # injected clock, so it never reads perf_counter
+        self.trace_t0 = None
+
+
+class _CacheEntry:
+    __slots__ = ("result", "expires_at", "owner")
+
+    def __init__(self, result: Result, expires_at: Optional[float],
+                 owner: Optional[str]):
+        self.result = result
+        self.expires_at = expires_at
+        self.owner = owner
+
+
+_ALL_OWNERS = object()                # sentinel: flush regardless of owner
+
+
+class RequestPipeline:
+    """Coalescing, deduplicating, fault-retrying request queue in front
+    of the Scheduler.  Safe for concurrent submitters (see module
+    docstring for the locking model)."""
+
+    def __init__(self, scheduler: Scheduler,
+                 cfg: Optional[PipelineConfig] = None, *,
+                 on_dispatch: Optional[Callable[[List[Result]], None]] = None):
+        self.scheduler = scheduler
+        self.cfg = cfg or PipelineConfig()
+        self.on_dispatch = on_dispatch
+        self.stats = PipelineStats()
+        # optional `MetricsRegistry` (set by the serving runtime):
+        # dispatched batch sizes are observed there
+        self.registry = None
+        self._lock = threading.RLock()
+        self._queues: Dict[str, List[_QueueItem]] = {}
+        self._inflight: Dict[Tuple, _QueueItem] = {}
+        # LRU: dict order is recency — hits move entries to the end,
+        # eviction pops from the front
+        self._cache: Dict[Tuple, _CacheEntry] = {}
+        # per-owner dispatch meters (serving: one per session)
+        self._meters: Dict[str, Callable[[List[Result]], None]] = {}
+
+    # ------------------------------------------------------------------
+    # owner metering (serving runtime)
+    # ------------------------------------------------------------------
+
+    def register_meter(self, owner: str,
+                       fn: Callable[[List[Result]], None]) -> None:
+        """Bill ``owner``'s dispatched requests through ``fn`` instead of
+        the default ``on_dispatch`` hook (exactly one of the two sees
+        each dispatched result — spend is conserved)."""
+        with self._lock:
+            self._meters[owner] = fn
+
+    # ------------------------------------------------------------------
+    # submission
+    # ------------------------------------------------------------------
+
+    def submit(self, request: Request,
+               owner: Optional[str] = None) -> ResultFuture:
+        return self.submit_many([request], owner=owner)[0]
+
+    def submit_many(self, requests: Sequence[Request], *,
+                    owner: Optional[str] = None) -> List[ResultFuture]:
+        with self._lock:
+            return self._submit_many_locked(requests, owner)
+
+    def _submit_many_locked(self, requests: Sequence[Request],
+                            owner: Optional[str]) -> List[ResultFuture]:
+        now = time.perf_counter()
+        tr = active_tracer()
+        futures: List[ResultFuture] = []
+        touched: List[str] = []
+        # dedup hits are the hottest pipeline path (thousands per query
+        # on a warm cache): trace them as ONE aggregated event per
+        # submit call, never one event per request
+        hit_cache = hit_inflight = 0
+        for r in requests:
+            self.stats.submitted += 1
+            self.stats.kind_hist[r.kind] = \
+                self.stats.kind_hist.get(r.kind, 0) + 1
+            key = request_fingerprint(r) if self.cfg.dedup else None
+            if key is not None:
+                cached = self._cache_get(key, owner)
+                if cached is not None:
+                    self.stats.dedup_hits += 1
+                    self.stats.cache_hits += 1
+                    hit_cache += 1
+                    futures.append(ResultFuture.resolved(cached))
+                    continue
+                pending = self._inflight.get(key)
+                if pending is not None:
+                    f = ResultFuture(self, r.model)
+                    pending.futures.append(f)
+                    pending.owners.add(owner)
+                    self.stats.dedup_hits += 1
+                    self.stats.inflight_hits += 1
+                    if owner != pending.owner:
+                        self.stats.cross_query_hits += 1
+                    hit_inflight += 1
+                    futures.append(f)
+                    continue
+            f = ResultFuture(self, r.model)
+            item = _QueueItem(r, f, now, owner)
+            if tr.enabled:
+                item.trace_t0 = tr.now()
+            self._queues.setdefault(r.model, []).append(item)
+            if key is not None:
+                self._inflight[key] = item
+            futures.append(f)
+            touched.append(r.model)
+        if tr.enabled and (hit_cache or hit_inflight):
+            tr.event("pipeline.dedup_hit", cache=hit_cache,
+                     inflight=hit_inflight)
+        for model in dict.fromkeys(touched):
+            if len(self._queues.get(model, ())) >= self.cfg.max_batch:
+                self.stats.flushes_on_size += 1
+                self._flush_model(model)
+        return futures
+
+    # ------------------------------------------------------------------
+    # flushing / dispatch
+    # ------------------------------------------------------------------
+
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return sum(len(q) for q in self._queues.values())
+
+    def flush(self, model: Optional[str] = None,
+              owner: Any = _ALL_OWNERS) -> None:
+        """Barrier: dispatch every queued request, or one model's queue,
+        or — with ``owner=`` — only the items a given owner submitted
+        (the serving engine's per-session barrier: other sessions' work
+        stays queued and keeps coalescing)."""
+        with self._lock:
+            models = [model] if model is not None else list(self._queues)
+            flushed_any = False
+            for m in models:
+                if not self._queues.get(m):
+                    continue
+                if owner is _ALL_OWNERS:
+                    flushed_any = True
+                    self._flush_model(m)
+                else:
+                    mine = [it for it in self._queues[m]
+                            if it.owner == owner]
+                    if not mine:
+                        continue
+                    rest = [it for it in self._queues[m]
+                            if it.owner != owner]
+                    if rest:
+                        self._queues[m] = rest
+                    else:
+                        del self._queues[m]
+                    flushed_any = True
+                    self._dispatch_chunked(mine)
+            if flushed_any:
+                self.stats.flushes_on_barrier += 1
+
+    def cancel(self, futures: Sequence[ResultFuture], *,
+               owner: Optional[str] = None) -> int:
+        """Cancel still-queued requests — the LIMIT-aware early-termination
+        hook: a streaming consumer that has its ``n`` rows withdraws the
+        speculative partitions it no longer needs *before* they are
+        dispatched, so they never reach an engine or the credit meter.
+
+        A queued request is cancelled only when **every** future attached
+        to it (the original plus any dedup attachments) is in ``futures``
+        — work another call site still awaits is left untouched.  Requests
+        already dispatched (or resolved) cannot be cancelled.  Returns the
+        number of requests removed from the queues.
+
+        On a shared pipeline pass ``owner=``: a surviving dedup-shared
+        item the canceller no longer awaits has the cancelled futures
+        detached and, if the canceller held the billing tag, the tag
+        moves to a surviving owner — a session is never billed for a
+        dispatch that only served other sessions.
+        """
+        with self._lock:
+            want = {id(f) for f in futures}
+            cancelled = self._cancel_items_locked(
+                lambda item: item.futures and all(
+                    id(f) in want for f in item.futures))
+            if owner is not None:
+                for q in self._queues.values():
+                    for item in q:
+                        mine = [f for f in item.futures if id(f) in want]
+                        if not mine:
+                            continue
+                        for f in mine:
+                            item.futures.remove(f)
+                            f._cancelled = True
+                        others = [o for o in item.owners if o != owner]
+                        if item.owner == owner and others:
+                            item.owner = others[0]
+            return cancelled
+
+    def cancel_owner(self, owner: Optional[str]) -> int:
+        """Cancel every still-queued request that belongs *only* to
+        ``owner`` — the failed-query cleanup hook: a query that errors
+        out must not leave work behind that a later barrier would
+        dispatch (and bill) on its behalf.  Items another owner has
+        dedup-attached to stay queued (that owner still awaits them),
+        but the billing tag moves to a surviving owner so the eventual
+        dispatch is never charged to the failed query."""
+        with self._lock:
+            cancelled = self._cancel_items_locked(
+                lambda item: item.owners == {owner})
+            # items other owners still await: drop the failed owner from
+            # the ownership set entirely (primary or attached), so it is
+            # never billed and a later cancel_owner of the last
+            # surviving owner can actually cancel the item
+            for q in self._queues.values():
+                for item in q:
+                    if owner in item.owners and item.owners != {owner}:
+                        item.owners.discard(owner)
+                        if item.owner == owner:
+                            item.owner = next(iter(item.owners))
+            return cancelled
+
+    def _cancel_items_locked(self, should_cancel) -> int:
+        cancelled = 0
+        for model in list(self._queues):
+            kept: List[_QueueItem] = []
+            for item in self._queues[model]:
+                if should_cancel(item):
+                    cancelled += 1
+                    for f in item.futures:
+                        f._cancelled = True
+                    if self.cfg.dedup:
+                        self._inflight.pop(
+                            request_fingerprint(item.request), None)
+                else:
+                    kept.append(item)
+            if kept:
+                self._queues[model] = kept
+            else:
+                del self._queues[model]
+        self.stats.cancelled += cancelled
+        return cancelled
+
+    def _flush_model(self, model: str) -> None:
+        queue = self._queues.pop(model, None)
+        if queue:
+            self._dispatch_chunked(queue)
+
+    def _dispatch_chunked(self, items: List[_QueueItem]) -> None:
+        """Dispatch a (single-model) run of queue items in chunks.
+
+        Chunks never exceed the scheduler's ``atomic_batch`` for the
+        model: an unsplit submit is all-or-nothing, so the retry loop in
+        `_dispatch` can never re-execute (and re-bill at the backend) a
+        partition that already succeeded — dispatch spend stays exactly
+        once per request.
+
+        An *unexpected* exception type (anything the retry loop does not
+        recognise as transient) fails this chunk's and every remaining
+        chunk's futures cleanly and drops their dedup fingerprints
+        before propagating — the items are already popped from the
+        queues, so leaving them half-tracked would hang their futures
+        and poison later identical submissions.
+        """
+        size = max(self.cfg.max_batch, 1)
+        if items:
+            atomic = self.scheduler.atomic_batch(items[0].request.model)
+            if atomic is not None:
+                size = min(size, atomic)
+        for lo in range(0, len(items), size):
+            try:
+                self._dispatch(items[lo:lo + size])
+            except Exception as e:
+                err = RequestFailed(f"dispatch aborted by unexpected "
+                                    f"error: {e}")
+                err.__cause__ = e
+                for it in items[lo:]:
+                    if self.cfg.dedup:
+                        self._inflight.pop(
+                            request_fingerprint(it.request), None)
+                    for f in it.futures:
+                        f._fail(err)
+                self.stats.failures += len(items) - lo
+                raise
+
+    def _dispatch(self, items: List[_QueueItem]) -> None:
+        if not items:
+            return
+        t0 = time.perf_counter()
+        tr = active_tracer()
+        requests = [it.request for it in items]
+        if self.registry is not None:
+            self.registry.histogram(
+                "aisql_pipeline_batch_size").observe(float(len(items)))
+        with tr.span("pipeline.dispatch", kind="pipeline.dispatch",
+                     model=requests[0].model,
+                     requests=len(items)) as dsp:
+            if tr.enabled and len(items) > 1:
+                tr.event("pipeline.coalesce", requests=len(items))
+            results: Optional[List[Result]] = None
+            last_exc: Optional[Exception] = None
+            for attempt in range(self.cfg.max_retries + 1):
+                if attempt:
+                    # transient fault: back off, then re-dispatch the
+                    # same batch (the scheduler re-picks replicas
+                    # underneath)
+                    self.stats.retries += 1
+                    tr.event("pipeline.retry", attempt=attempt)
+                    time.sleep(min(
+                        self.cfg.retry_backoff_s * (2 ** (attempt - 1)),
+                        self.cfg.retry_backoff_cap_s))
+                try:
+                    results = self.scheduler.submit(requests)
+                    break
+                except (EngineFailure, SchedulerError) as e:
+                    last_exc = e
+            if tr.enabled and results is not None:
+                waits = [it.trace_t0 for it in items
+                         if it.trace_t0 is not None]
+                dsp.set(credits=float(sum(r.credits for r in results)),
+                        tokens_in=int(sum(r.tokens_in for r in results)),
+                        tokens_out=int(sum(r.tokens_out
+                                           for r in results)),
+                        queue_wait_s=(tr.now() - min(waits)
+                                      if waits else 0.0),
+                        outcome="ok")
+            elif tr.enabled:
+                dsp.set(outcome="failed")
+        if results is None:
+            # retries exhausted: resolve every attached future with a
+            # clean error — never a silent drop, never a hang.  Nothing
+            # was billed (metering happens only on success below).
+            self.stats.failures += len(items)
+            for it in items:
+                if self.cfg.dedup:
+                    self._inflight.pop(request_fingerprint(it.request), None)
+                err = RequestFailed(
+                    f"request permanently failed after "
+                    f"{self.cfg.max_retries} pipeline retries: {last_exc}")
+                err.__cause__ = last_exc
+                for f in it.futures:
+                    f._fail(err)
+            return
+        self.stats.batches += 1
+        self.stats.dispatched += len(items)
+        self.stats.batch_size_hist[len(items)] = \
+            self.stats.batch_size_hist.get(len(items), 0) + 1
+        self._bill(items, results)
+        for it, res in zip(items, results):
+            self.stats.queue_wait_s += t0 - it.enqueued_at
+            key = request_fingerprint(it.request) if self.cfg.dedup else None
+            if key is not None:
+                self._inflight.pop(key, None)
+                self._remember(key, res, it.owner)
+            for f in it.futures:
+                f._resolve(res)
+
+    def _bill(self, items: List[_QueueItem], results: List[Result]) -> None:
+        """Route each dispatched result to its owner's registered meter;
+        everything else goes to the default ``on_dispatch`` hook.  Each
+        result is billed exactly once."""
+        default_bucket: List[Result] = []
+        owned: Dict[str, List[Result]] = {}
+        for it, res in zip(items, results):
+            meter = self._meters.get(it.owner) if it.owner is not None \
+                else None
+            if meter is not None:
+                owned.setdefault(it.owner, []).append(res)
+            else:
+                default_bucket.append(res)
+        for owner, rs in owned.items():
+            self._meters[owner](rs)
+        if default_bucket and self.on_dispatch is not None:
+            self.on_dispatch(default_bucket)
+
+    # ------------------------------------------------------------------
+    # memoized result cache (LRU + optional TTL)
+    # ------------------------------------------------------------------
+
+    def _cache_get(self, key: Tuple,
+                   owner: Optional[str]) -> Optional[Result]:
+        entry = self._cache.get(key)
+        if entry is None:
+            return None
+        if (entry.expires_at is not None
+                and time.monotonic() >= entry.expires_at):
+            del self._cache[key]
+            self.stats.cache_expired += 1
+            return None
+        # LRU: a hit moves the entry to the recent end so hot keys
+        # survive eviction pressure
+        self._cache.pop(key)
+        self._cache[key] = entry
+        if entry.owner != owner:
+            self.stats.cross_query_hits += 1
+        return entry.result
+
+    def _remember(self, key: Tuple, result: Result,
+                  owner: Optional[str]) -> None:
+        cap = self.cfg.cache_size
+        if cap <= 0:
+            return
+        self._cache.pop(key, None)
+        while len(self._cache) >= cap:
+            # evict the least-recently-used entry (front of the dict)
+            self._cache.pop(next(iter(self._cache)))
+        ttl = self.cfg.cache_ttl_s
+        expires = time.monotonic() + ttl if ttl is not None else None
+        self._cache[key] = _CacheEntry(result, expires, owner)
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """Point-in-time copy of `PipelineStats` taken under the
+        pipeline lock, so the counters are mutually consistent (no
+        dispatch can land between reading ``submitted`` and
+        ``dispatched``)."""
+        return locked_snapshot(self._lock, self.stats.snapshot)
+
+    def stats_delta(self, before: Dict[str, Any]) -> Dict[str, Any]:
+        """`PipelineStats.delta` under the pipeline lock (atomic with
+        respect to a concurrent dispatch)."""
+        return locked_snapshot(self._lock,
+                               lambda: self.stats.delta(before))
+
+    def cache_keys(self):
+        with self._lock:
+            return list(self._cache)
+
+    def clear_cache(self) -> None:
+        with self._lock:
+            self._cache.clear()

@@ -1,0 +1,304 @@
+"""Cortex Platform Scheduler (paper §2): routes requests to engines.
+
+Responsibilities mirrored from the paper:
+  * model-affinity routing — a request for model M goes to an engine that
+    already hosts M, picked **least-loaded first**: replicas are ranked by
+    accumulated busy-seconds plus queued work, so a slow or straggling
+    replica naturally receives less traffic than pure round-robin would
+    give it (round-robin order breaks ties);
+  * batch right-sizing — a batch larger than a replica's capacity hint is
+    split across healthy replicas and the partial results are merged in
+    request order;
+  * fault tolerance — EngineFailure triggers bounded retry on another
+    replica (or the same one if it is the only replica);
+  * straggler mitigation — per-batch deadline; a batch that exceeds it
+    adds a load penalty to the offending replica so subsequent picks
+    prefer its peers;
+  * elastic scaling hooks — replicas can be registered/deregistered at any
+    time (the autoscaler in api.py uses queue depth).
+
+Request ids must be unique within one ``submit`` call; colliding ids
+(e.g. the all-zero default) are transparently re-assigned for the
+duration of the call and restored afterwards, instead of silently
+dropping all but one result per id.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.inference.backend import (EngineFailure, EngineTimeout,
+                                     InferenceBackend, Request, Result)
+from repro_torch.obs.metrics import locked_snapshot
+from repro_torch.obs.trace import active_tracer
+
+_DEFAULT_CAPACITY = 32
+
+
+def _capacity_of(engine: InferenceBackend) -> int:
+    hint = getattr(engine, "capacity_hint", None)
+    if callable(hint):
+        hint = hint()
+    if hint is None:
+        hint = getattr(engine, "max_batch", None)
+    return int(hint) if hint else _DEFAULT_CAPACITY
+
+
+class SchedulerError(RuntimeError):
+    pass
+
+
+class Scheduler:
+    def __init__(self, *, max_retries: int = 2,
+                 straggler_deadline_s: Optional[float] = None,
+                 straggler_penalty_s: float = 1.0):
+        self._replicas: Dict[str, List[InferenceBackend]] = {}
+        self._rr: Dict[str, int] = {}
+        # per-engine load accounting for least-loaded routing
+        self._busy_s: Dict[int, float] = {}
+        self._depth: Dict[int, int] = {}
+        self.max_retries = max_retries
+        self.straggler_deadline_s = straggler_deadline_s
+        self.straggler_penalty_s = straggler_penalty_s
+        # one submit at a time: routing state (_busy_s/_depth/_rr), the
+        # telemetry counters and the backends' own meters are all
+        # mutated per call — concurrent querying threads serialize here
+        # (the single-dispatcher half of the serving concurrency model)
+        self._lock = threading.RLock()
+        # telemetry
+        self.retries = 0
+        self.timeouts = 0          # of the retries, injected/engine timeouts
+        self.redispatches = 0
+        self.splits = 0
+        self.submits = 0           # submit() calls (what the pipeline saves)
+        self.dispatches = 0        # engine submit_batch calls
+        # optional `MetricsRegistry` (set by the serving runtime): each
+        # successful replica dispatch records per-model calls, tokens,
+        # credits and latency families there
+        self.registry = None
+
+    # ---- registry / elasticity ----
+    def register(self, engine: InferenceBackend) -> None:
+        with self._lock:
+            for m in engine.hosted_models():
+                self._replicas.setdefault(m, []).append(engine)
+            self._busy_s.setdefault(id(engine), 0.0)
+            self._depth.setdefault(id(engine), 0)
+
+    def deregister(self, engine: InferenceBackend) -> None:
+        with self._lock:
+            for m in list(self._replicas):
+                self._replicas[m] = [e for e in self._replicas[m]
+                                     if e is not engine]
+            self._busy_s.pop(id(engine), None)
+            self._depth.pop(id(engine), None)
+
+    def replicas(self, model: str) -> List[InferenceBackend]:
+        return list(self._replicas.get(model, ()))
+
+    def hosted_models(self) -> List[str]:
+        return list(self._replicas)
+
+    def engine_load(self, engine: InferenceBackend) -> float:
+        """Load score: accumulated busy seconds + queued request count."""
+        return (self._busy_s.get(id(engine), 0.0)
+                + float(self._depth.get(id(engine), 0)))
+
+    def backend_stats(self) -> Dict[str, Dict]:
+        """Decode-backend telemetry per registered engine (engines that
+        expose ``backend_stats``), keyed by engine id — what the serving
+        report surfaces for continuous-batching occupancy/step counts."""
+        def read():
+            out: Dict[str, Dict] = {}
+            seen = set()
+            for reps in self._replicas.values():
+                for e in reps:
+                    if id(e) in seen:
+                        continue
+                    seen.add(id(e))
+                    fn = getattr(e, "backend_stats", None)
+                    if callable(fn):
+                        out[getattr(e, "engine_id",
+                                    f"engine#{len(out)}")] = fn()
+            return out
+        return locked_snapshot(self._lock, read)
+
+    def stats_snapshot(self) -> Dict[str, int]:
+        """Atomic copy of the telemetry counters, taken under the same
+        lock the dispatcher mutates them behind — the one sanctioned way
+        to read them (`ServingEngine.report` and the registry collector
+        both come through here, so their numbers agree)."""
+        return locked_snapshot(self._lock, lambda: {
+            "retries": self.retries,
+            "timeouts": self.timeouts,
+            "redispatches": self.redispatches,
+            "splits": self.splits,
+            "submits": self.submits,
+            "dispatches": self.dispatches,
+        })
+
+    def atomic_batch(self, model: str) -> Optional[int]:
+        """Largest single-model batch ``submit`` will never split across
+        replicas (None = single replica, unbounded).  A caller that
+        retries failed submits should stay within this bound: an
+        unsplit submit is all-or-nothing — either results come back or
+        nothing was served/billed — so a retry can never re-execute a
+        partition that already succeeded."""
+        with self._lock:
+            reps = self._replicas.get(model, ())
+            if len(reps) <= 1:
+                return None
+            return max(min(_capacity_of(e) for e in reps), 1)
+
+    # ---- routing ----
+    def _pick(self, model: str, exclude=None) -> InferenceBackend:
+        reps = self._replicas.get(model)
+        if not reps:
+            raise SchedulerError(f"no engine hosts model {model!r}; "
+                                 f"hosted: {self.hosted_models()}")
+        candidates = [e for e in reps if e is not exclude] or reps
+        lo = min(self.engine_load(e) for e in candidates)
+        tied = [e for e in candidates if self.engine_load(e) <= lo + 1e-12]
+        i = self._rr.get(model, 0) % len(tied)     # round-robin tie-break
+        self._rr[model] = i + 1
+        return tied[i]
+
+    def submit(self, requests: Sequence[Request]) -> List[Result]:
+        """Route a mixed-model batch; preserves input order.  Thread-safe
+        (serialized on the scheduler lock)."""
+        with self._lock:
+            return self._submit_locked(requests)
+
+    def _submit_locked(self, requests: Sequence[Request]) -> List[Result]:
+        self.submits += 1
+        originals = self._ensure_unique_ids(requests)
+        try:
+            by_model: Dict[str, List[Request]] = {}
+            for r in requests:
+                by_model.setdefault(r.model, []).append(r)
+            results: Dict[int, Result] = {}
+            for model, reqs in by_model.items():
+                for part in self._partition(model, reqs):
+                    for res in self._submit_one_model(model, part):
+                        results[res.request_id] = res
+            out = [results[r.request_id] for r in requests]
+        finally:
+            if originals is not None:
+                for r, rid in zip(requests, originals):
+                    r.request_id = rid
+        if originals is not None:
+            for res, r in zip(out, requests):
+                res.request_id = r.request_id
+        return out
+
+    def _ensure_unique_ids(self, requests: Sequence[Request]
+                           ) -> Optional[List[int]]:
+        """Colliding request ids would silently drop results (the results
+        map is id-keyed) — re-assign unique temporary ids when needed."""
+        ids = [r.request_id for r in requests]
+        if len(set(ids)) == len(requests):
+            return None
+        for i, r in enumerate(requests):
+            r.request_id = i + 1
+        return ids
+
+    def _partition(self, model: str, reqs: List[Request]
+                   ) -> List[List[Request]]:
+        """Split an oversized batch across replicas (capacity hints)."""
+        reps = self._replicas.get(model, ())
+        if len(reps) <= 1 or not reqs:
+            return [reqs]
+        per_replica = max(min(_capacity_of(e) for e in reps), 1)
+        n_parts = min(len(reps), -(-len(reqs) // per_replica))
+        if n_parts <= 1:
+            return [reqs]
+        self.splits += n_parts - 1
+        size = -(-len(reqs) // n_parts)
+        return [reqs[i:i + size] for i in range(0, len(reqs), size)]
+
+    def _replica_name(self, model: str, engine: InferenceBackend) -> str:
+        name = getattr(engine, "engine_id", None)
+        if name:
+            return str(name)
+        reps = self._replicas.get(model, ())
+        try:
+            i = reps.index(engine)
+        except ValueError:
+            i = -1
+        return f"{type(engine).__name__}#{i}"
+
+    def _record_dispatch(self, model: str, results: Sequence[Result],
+                         seconds: float) -> None:
+        reg = self.registry
+        if reg is None or not results:
+            return
+        calls = reg.counter("aisql_ai_calls_total")
+        by_kind: Dict[str, int] = {}
+        tokens_in = tokens_out = 0
+        credits = 0.0
+        for r in results:
+            by_kind[r.kind] = by_kind.get(r.kind, 0) + 1
+            tokens_in += r.tokens_in
+            tokens_out += r.tokens_out
+            credits += r.credits
+        for kind, n in by_kind.items():
+            calls.inc(n, model=model, kind=kind)
+        tok = reg.counter("aisql_ai_tokens_total")
+        tok.inc(tokens_in, model=model, direction="in")
+        tok.inc(tokens_out, model=model, direction="out")
+        reg.counter("aisql_backend_credits_total").inc(credits, model=model)
+        reg.histogram("aisql_dispatch_latency_seconds").observe(
+            seconds, model=model)
+
+    def _submit_one_model(self, model: str, reqs: Sequence[Request]
+                          ) -> List[Result]:
+        last_exc: Optional[Exception] = None
+        tr = active_tracer()
+        engine = self._pick(model)
+        for attempt in range(self.max_retries + 1):
+            eid = id(engine)
+            self._depth[eid] = self._depth.get(eid, 0) + len(reqs)
+            try:
+                with tr.span("dispatch.replica", kind="dispatch.replica",
+                             model=model,
+                             replica=(self._replica_name(model, engine)
+                                      if tr.enabled else ""),
+                             attempt=attempt,
+                             requests=len(reqs)) as sp:
+                    t0 = time.perf_counter()
+                    self.dispatches += 1
+                    out = engine.submit_batch(reqs)
+                    dt = time.perf_counter() - t0
+                    if tr.enabled:
+                        sp.set(credits=float(sum(r.credits for r in out)),
+                               tokens_in=int(sum(r.tokens_in
+                                                 for r in out)),
+                               tokens_out=int(sum(r.tokens_out
+                                                  for r in out)),
+                               outcome="ok")
+                self._record_dispatch(model, out, dt)
+                self._busy_s[eid] = self._busy_s.get(eid, 0.0) + dt
+                if (self.straggler_deadline_s is not None
+                        and dt > self.straggler_deadline_s
+                        and len(self._replicas.get(model, ())) > 1
+                        and attempt < self.max_retries):
+                    # straggler: result arrived but too late — penalize the
+                    # slow replica so least-loaded picks route around it
+                    self.redispatches += 1
+                    self._busy_s[eid] += self.straggler_penalty_s
+                return out
+            except EngineFailure as e:
+                last_exc = e
+                self.retries += 1
+                timeout = isinstance(e, EngineTimeout)
+                if timeout:
+                    self.timeouts += 1
+                sp.set(outcome="timeout" if timeout else "fault")
+                tr.event("scheduler.retry", attempt=attempt,
+                         timeout=timeout)
+                engine = self._pick(model, exclude=engine)
+            finally:
+                self._depth[eid] = max(self._depth.get(eid, 0) - len(reqs), 0)
+        raise SchedulerError(
+            f"model {model}: exhausted {self.max_retries} retries") from last_exc

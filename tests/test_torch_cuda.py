@@ -7,6 +7,9 @@ only PyTorch:
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 2e-4 (summation
 order differs), bf16 5e-2 (outputs round to bf16 at different points).
+K3 (similarity top-k) is held tighter: values within 1e-5, ids equal
+except between rows whose plain-version scores lie within 1e-5 of each
+other, and ids exactly equal on sign vectors, where every score is exact.
 """
 import numpy as np
 import pytest
@@ -16,10 +19,15 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.similarity_topk import ops as topk_ops  # noqa: E402
+from repro_torch.kernels.similarity_topk.ref import topk_flips  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.semindex import (IvfConfig, IvfFlatIndex,  # noqa: E402
+                                  SemanticIndexManager, SemIndexConfig)
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
        torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+TOPK_TOL = 1e-5
 
 
 @pytest.fixture
@@ -136,3 +144,91 @@ def test_model_attention_launches_the_kernels(cuda, impl):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
     torch.testing.assert_close(dec.float(), dec_ref.float(),
                                **TOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# K3: similarity top-k
+# ---------------------------------------------------------------------------
+
+
+def _check_topk(q, c, k):
+    """K3 against its plain version: values within TOPK_TOL, ids equal but
+    for flips between rows the plain version scores within TOPK_TOL;
+    a second launch gives the same bits."""
+    before = topk_ops.LAUNCHES
+    vals, idx = topk_ops.similarity_topk(q, c, k)
+    rv, ri = topk_ops.similarity_topk(q, c, k + 1, impl="reference")
+    torch.cuda.synchronize()
+    assert topk_ops.LAUNCHES == before + 1
+    assert vals.shape == idx.shape == (q.shape[0], k)
+    assert idx.dtype == torch.int32 and vals.dtype == torch.float32
+    torch.testing.assert_close(vals, rv[:, :k], rtol=0, atol=TOPK_TOL)
+    flips = topk_flips(idx, rv, ri)
+    assert all(f[-1] < TOPK_TOL for f in flips), flips
+    again = topk_ops.similarity_topk(q, c, k)
+    assert torch.equal(again[0], vals) and torch.equal(again[1], idx)
+    return vals, idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,N,D,k", [
+    (13, 201, 48, 5), (32, 512, 64, 17), (1, 1000, 32, 1), (64, 64, 128, 64),
+    (40, 3000, 64, 128),          # the fused path's largest k
+    (5, 3000, 64, 129),           # the large path
+    (3, 100_000, 32, 10),         # many corpus splits
+])
+def test_topk_kernel(cuda, dtype, Q, N, D, k):
+    q, c = _randn(17, [(Q, D), (N, D)], dtype, cuda)
+    _check_topk(q, c, k)
+
+
+@pytest.mark.parametrize("N,k", [(4, 7), (150, 200), (1, 1)])
+def test_topk_kernel_k_exceeds_corpus(cuda, N, k):
+    q, c = _randn(18, [(3, 16), (N, 16)], torch.float32, cuda)
+    vals, idx = _check_topk(q, c, k)
+    assert (idx[:, N:] == -1).all() and torch.isneginf(vals[:, N:]).all()
+
+
+def test_topk_kernel_sign_vector_ties(cuda):
+    """Entries +-1 at D=16: every score is an exact multiple of 1/8, ties
+    are everywhere, and only the tie rule orders them."""
+    rng = np.random.default_rng(19)
+    c = rng.choice([-1.0, 1.0], size=(700, 16)).astype(np.float32)
+    c[300:320] = c[10]
+    q = np.concatenate([rng.choice([-1.0, 1.0], size=(40, 16)), c[:4]])
+    q, c = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (q, c))
+    for k in (1, 8, 33, 128, 129, 700):
+        vals, idx = topk_ops.similarity_topk(q, c, k)
+        rv, ri = topk_ops.similarity_topk(q, c, k, impl="reference")
+        assert torch.equal(idx, ri), k
+        assert torch.equal(vals, rv), k
+
+
+def test_index_launches_k3_per_search(cuda):
+    rng = np.random.default_rng(20)
+    vecs = rng.standard_normal((600, 32)).astype(np.float32)
+    queries = rng.standard_normal((9, 32)).astype(np.float32)
+    cfg = IvfConfig(nlist=8, nprobe=3)
+    index = IvfFlatIndex(vecs, cfg, device="cuda")
+    plain = IvfFlatIndex(vecs, IvfConfig(nlist=8, nprobe=3,
+                                         impl="reference"), device="cuda")
+    assert index.vectors.is_cuda
+    before = topk_ops.LAUNCHES
+    fv, fi = index.search_flat(queries, 10)
+    assert topk_ops.LAUNCHES == before + 1
+    pv, pi = plain.search_flat(queries, 10)
+    np.testing.assert_array_equal(fi, pi)
+    np.testing.assert_allclose(fv, pv, rtol=0, atol=TOPK_TOL)
+    _, probe = plain._topk(plain._tensor(queries), plain._centroids, 3)
+    cells = {int(c) for c in np.unique(probe) if len(index.cells[c])}
+    before = topk_ops.LAUNCHES
+    iv, ii = index.search(queries, 10)
+    assert topk_ops.LAUNCHES == before + 1 + len(cells)
+    jv, ji = plain.search(queries, 10)
+    np.testing.assert_array_equal(ii, ji)
+    np.testing.assert_allclose(iv, jv, rtol=0, atol=TOPK_TOL)
+    mgr = SemanticIndexManager(SemIndexConfig())
+    before = topk_ops.LAUNCHES
+    cv, ci = mgr.topk_candidates(queries, vecs, 20)
+    assert topk_ops.LAUNCHES == before + 1 and ci.dtype == np.int32
+    np.testing.assert_array_equal(ci, plain.search_flat(queries, 20)[1])
