@@ -5,24 +5,35 @@ Run from the root of a checkout on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, serves one mixed
-batch (SCORE, COMPLETE, CLASSIFY, EMBED) with proxy-8b at full width
-(32 layers, d_model 4096, vocab 128256, bf16, random weights from a seed),
-checks that the served path launched each kernel the expected number of
-times and that its results are well formed, holds what goes through the
-kernels (every decode step's logits, CLASSIFY's label logprobs, EMBED's
-vectors) to the same computed through the plain attention, then drives
-the semantic index over the same engine (CortexClient -> RequestPipeline
--> Scheduler -> EMBED -> SemanticIndexManager -> IvfFlatIndex -> the
-similarity top-k kernel) and holds its searches to a plain-path manager
-over the same store.  Last it times each kernel beside its plain
-version, its bound and one PyTorch library call.  The last line is a JSON
-object with ``"ok": true``; any failed check exits non-zero without it.
-It needs no network and imports nothing of JAX.
+It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+(K1 decode attention, K2 flash attention, K3 similarity top-k, K4 RG-LRU
+scan, K5 RWKV-6 scan), holds each against its plain PyTorch version on the
+card, serves one mixed batch (SCORE, COMPLETE, CLASSIFY, EMBED) with
+proxy-8b at full width (32 layers, d_model 4096, vocab 128256, bf16,
+random weights from a seed), checks that the served path launched each
+kernel the expected number of times and that its results are well formed,
+holds what goes through the kernels (every decode step's logits,
+CLASSIFY's label logprobs, EMBED's vectors) to the same computed through
+the plain attention, then drives the semantic index over the same engine
+(CortexClient -> RequestPipeline -> Scheduler -> EMBED ->
+SemanticIndexManager -> IvfFlatIndex -> the similarity top-k kernel) and
+holds its searches to a plain-path manager over the same store.  Then it
+serves the same mix with rwkv6-1.6b (24 RWKV-6 blocks, d_model 2048, every
+wkv scan through K5) and recurrentgemma-9b (38 RG-LRU and local-attention
+layers, d_model 4096, vocab 256000: RG-LRU scans through K4, the
+sliding-window attention through K2 and K1 at head dim 256), both at full
+width and depth on the engine's static path, with the same gates against
+their plain paths (every scan and attention through its plain version).
+Last it times each kernel beside its plain version, its bound and, where
+one exists, one PyTorch library call.  The last line is a JSON object with
+``"ok": true``; any failed check exits non-zero without it.  It needs no
+network and imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -36,10 +47,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
-# kernel-served vs plain-served limits at full width (bf16, 32 layers),
-# a few times the readings on the H100 (PERF.md, section 6)
-SERVE_TOL = {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
-             "embed_cosine": 0.9995}
+# kernel-served vs plain-served limits at full width (bf16), a few times
+# the readings on the H100 (PERF.md, section 6): decode-step logits
+# (relative L2 per row), SCORE's prefill logits (the same, static path
+# only), CLASSIFY label logprobs (nats), EMBED cosine (lower limit)
+SERVE_TOL = {
+    "proxy-8b": {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
+                 "embed_cosine": 0.9995},
+    "rwkv6-1.6b": {"decode_logits_rel": 0.05, "score_logits_rel": 0.1,
+                   "classify_logprob": 0.05, "embed_cosine": 0.9995},
+    "recurrentgemma-9b": {"decode_logits_rel": 0.08,
+                          "score_logits_rel": 0.08,
+                          "classify_logprob": 0.05, "embed_cosine": 0.9995},
+}
 # K3 (similarity top-k, fp32): values within TOPK_TOL of the plain
 # version; ids equal except between rows whose plain scores lie within
 # TOPK_TOL of each other (fp32 sums in another order); on sign vectors,
@@ -47,6 +67,19 @@ SERVE_TOL = {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
 TOPK_TOL = 1e-5
 SEED = 0
 N_LAYERS = 32
+# each kernel's source and the TPU kernel it replaces
+KERNEL_FILES = {
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:74"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:86"),
+    "similarity_topk": ("src/repro_torch/kernels/csrc/similarity_topk.cu",
+                        "src/repro/kernels/similarity_topk/kernel.py:69"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan/kernel.py:46"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan/kernel.py:55"),
+}
 
 PROMPTS_SCORE = [
     "Is the following review positive? 'The film was a delight from start "
@@ -226,18 +259,141 @@ def check_kernels(torch, dec_ops, flash_ops, dev):
                 fail(f"K2 {name} Sq={Sq} Skv={Skv} window={window} "
                      "disagrees with its plain version")
             errs["flash_attention"] = max(errs["flash_attention"], e)
+    check_attention_hd256(torch, dec_ops, flash_ops, dev, gen, errs)
     return errs
 
 
-def requests():
+def check_attention_hd256(torch, dec_ops, flash_ops, dev, gen, errs):
+    """K1 and K2 at recurrentgemma's local-attention widths (16 q heads on
+    one kv head, hd 256): K1 over a 2048-slot ring at the ring lengths a
+    decode step gives (a prefix of min(pos + 1, 2048) slots), K2 in window
+    mode with the window shorter and longer than the sequence."""
+    H, KV, hd = 16, 1, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        B, W = 8, 2048
+        q, kc, vc = r(B, 1, H, hd), r(B, W, KV, hd), r(B, W, KV, hd)
+        lengths = torch.tensor([1, 33, 64, 65, 384, 1000, 2047, 2048],
+                               dtype=torch.int32, device=dev)
+        out, lse = dec_ops.flash_decode(q, kc, vc, lengths, return_lse=True)
+        ref, ref_lse = dec_ops.flash_decode(q, kc, vc, lengths,
+                                            impl="reference",
+                                            return_lse=True)
+        torch.cuda.synchronize()
+        e, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+        print(f"K1 decode {name} B={B} H={H} KV={KV} hd={hd} ring {W} "
+              f"lengths={lengths.tolist()}: max|out-plain|={e:.3g} "
+              f"max|lse-plain|={e_lse:.3g} (tol {TOL[name]})")
+        if not (e <= TOL[name] and e_lse <= TOL["float32"]):
+            fail(f"K1 {name} hd {hd} disagrees with its plain version")
+        errs["decode_attention@hd256"] = max(
+            errs.get("decode_attention@hd256", 0.0), e)
+        for S, window in ((37, 16), (128, 2048), (384, 2048), (384, 100)):
+            B = 2
+            q, k, v = r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+            out = flash_ops.flash_attention(q, k, v, window=window)
+            ref = flash_ops.flash_attention(q, k, v, window=window,
+                                            impl="reference")
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            print(f"K2 flash {name} B={B} H={H} KV={KV} hd={hd} S={S} "
+                  f"window={window}: max|out-plain|={e:.3g} (tol "
+                  f"{TOL[name]})")
+            if not e <= TOL[name]:
+                fail(f"K2 {name} hd {hd} S={S} window={window} disagrees "
+                     "with its plain version")
+            errs["flash_attention@hd256"] = max(
+                errs.get("flash_attention@hd256", 0.0), e)
+
+
+def decays(torch, gen, shape, dev):
+    """Decays in (0, 1), as the models make them."""
+    return torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2)
+
+
+def rel_err(x, ref) -> float:
+    """max |x - ref| over max(1, max |ref|): K5's state and outputs grow
+    with the sequence, and fp32 rounding with them."""
+    return max_err(x, ref) / max(1.0, float(ref.abs().max()))
+
+
+def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
+    """K4 and K5 against their plain versions, bf16 and fp32 inputs, at
+    the served models' widths (K4: W = 4096; K5: 32 heads of 64) and the
+    full shapes (B = 8, S = 384), a served decode step (S = 1) and odd
+    sizes; K5 also chained: two launches over the halves, the second from
+    the first's state, equal one launch over the whole.  K4 must give the
+    plain version's bits (both round the multiply and the add apart);
+    K5 within TOL["float32"] relative to the largest plain value."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    errs.setdefault("rglru_scan", 0.0)
+    errs.setdefault("rwkv6_scan", 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for B, S, W in ((8, 384, 4096), (8, 45, 4096), (3, 37, 300)):
+            a = decays(torch, gen, (B, S, W), dev).to(dtype)
+            b = torch.randn((B, S, W), generator=gen, device=dev).to(dtype)
+            h0 = torch.randn((B, W), generator=gen, device=dev)
+            hs, hT = rglru_ops.rglru_scan(a, b, h0)
+            ref_hs, ref_hT = rglru_ops.rglru_scan(a, b, h0, impl="reference")
+            torch.cuda.synchronize()
+            e = max(max_err(hs, ref_hs), max_err(hT, ref_hT))
+            same = torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+            print(f"K4 rglru {name} B={B} S={S} W={W}: max|h-plain|={e:.3g}"
+                  f", bitwise equal {same}")
+            if not same:
+                fail(f"K4 {name} B={B} S={S} W={W} differs from its plain "
+                     "version")
+            errs["rglru_scan"] = max(errs["rglru_scan"], e)
+        for B, S, H, hd in ((8, 384, 32, 64), (8, 45, 32, 64),
+                            (8, 1, 32, 64), (3, 37, 5, 64), (2, 19, 3, 16)):
+            r, k, v = (torch.randn((B, S, H, hd), generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            w = decays(torch, gen, (B, S, H, hd), dev)
+            u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+            s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
+            o, sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+            again = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+            ref_o, ref_sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0,
+                                                impl="reference")
+            torch.cuda.synchronize()
+            e = max(rel_err(o, ref_o), rel_err(sT, ref_sT))
+            msg = ""
+            if S > 1:
+                h = S // 2
+                o1, s1 = rwkv_ops.rwkv6_scan(r[:, :h], k[:, :h], v[:, :h],
+                                             w[:, :h], u, s0)
+                o2, s2 = rwkv_ops.rwkv6_scan(r[:, h:], k[:, h:], v[:, h:],
+                                             w[:, h:], u, s1)
+                e_chain = max(rel_err(torch.cat([o1, o2], 1), o),
+                              rel_err(s2, sT))
+                msg = f", two halves chained vs one launch {e_chain:.3g}"
+                e = max(e, e_chain)
+            repeat = (torch.equal(again[0], o)
+                      and torch.equal(again[1], sT))
+            e_abs = max(max_err(o, ref_o), max_err(sT, ref_sT))
+            print(f"K5 rwkv6 {name} B={B} S={S} H={H} hd={hd}: rel. max|"
+                  f"err| vs plain {e:.3g} (tol {TOL['float32']}), max|err| "
+                  f"{e_abs:.3g}{msg}, repeat bitwise equal {repeat}")
+            if not (e <= TOL["float32"] and repeat):
+                fail(f"K5 {name} B={B} S={S} H={H} disagrees with its plain "
+                     "version or with itself")
+            errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e_abs)
+
+
+def requests(arch="proxy-8b"):
     from repro_torch.inference.backend import (CLASSIFY, COMPLETE, EMBED,
                                                SCORE, Request)
-    reqs = [Request(p, "proxy-8b", SCORE) for p in PROMPTS_SCORE]
-    reqs += [Request(p, "proxy-8b", COMPLETE, max_tokens=16)
+    reqs = [Request(p, arch, SCORE) for p in PROMPTS_SCORE]
+    reqs += [Request(p, arch, COMPLETE, max_tokens=16)
              for p in PROMPTS_COMPLETE]
-    reqs += [Request(p, "proxy-8b", CLASSIFY, labels=lbls)
+    reqs += [Request(p, arch, CLASSIFY, labels=lbls)
              for p, lbls in PROMPTS_CLASSIFY]
-    reqs += [Request(p, "proxy-8b", EMBED, metadata={"embed_dim": 256})
+    reqs += [Request(p, arch, EMBED, metadata={"embed_dim": 256})
              for p in PROMPTS_EMBED]
     for i, r in enumerate(reqs):
         r.request_id = i + 1
@@ -429,21 +585,22 @@ def serve_and_check(torch, eng, errs):
         agree.append(f"{n}/{max(len(a), len(b))}")
     same_label = sum(a.label == b.label for a, b in zip(results, ref_results)
                      if a.kind == "classify")
+    tol = SERVE_TOL["proxy-8b"]
     print(f"kernel vs plain, K1: decode-step logits over {len(probe)} steps "
           f"max rel. L2 err {logits_rel:.3g} (tol "
-          f"{SERVE_TOL['decode_logits_rel']}), max |err| {logits_abs:.3g}, "
+          f"{tol['decode_logits_rel']}), max |err| {logits_abs:.3g}, "
           f"same top-1 token {top1[0]}/{top1[1]} rows")
     print(f"kernel vs plain, K2: CLASSIFY label logprobs {len(lps)} pairs "
-          f"max |err| {d_lp:.3g} nats (tol {SERVE_TOL['classify_logprob']}), "
+          f"max |err| {d_lp:.3g} nats (tol {tol['classify_logprob']}), "
           f"labels same {same_label}/{n_cls}; EMBED min cosine {cos:.6f} "
-          f"(tol {SERVE_TOL['embed_cosine']})")
+          f"(tol {tol['embed_cosine']})")
     print(f"COMPLETE leading tokens equal {agree} (not gated: greedy argmax "
           "over near-flat random logits can flip on bf16 rounding)")
     if len(lps) != len(ref_lps) or not lps or not probe:
         fail("the served path ran no CLASSIFY pass or no decode step")
-    if not (logits_rel <= SERVE_TOL["decode_logits_rel"]
-            and d_lp <= SERVE_TOL["classify_logprob"]
-            and cos >= SERVE_TOL["embed_cosine"]):
+    if not (logits_rel <= tol["decode_logits_rel"]
+            and d_lp <= tol["classify_logprob"]
+            and cos >= tol["embed_cosine"]):
         fail("the kernel-served and plain-served results disagree")
 
     # 5. profile one served batch: device busy share and top kernels
@@ -460,24 +617,364 @@ def serve_and_check(torch, eng, errs):
     k1_served = k1_passes[k1_keys.index(max(k1_keys))]
     k2_served = max(k2_passes, key=lambda p: math.prod(p[0]))
     rows = []
-    for name, (_, args, kw), src, tpu in (
-            ("decode_attention", k1_served,
-             "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:74"),
-            ("flash_attention", k2_served,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:86")):
+    for name, (_, args, kw) in (("decode_attention", k1_served),
+                                ("flash_attention", k2_served)):
         t = (time_decode(torch, dec_ops, *args) if name == "decode_attention"
              else time_flash(torch, flash_ops, *args, **kw))
-        err = t.pop("max_abs_err")
-        tol = TOL[str(args[0].dtype).split(".")[-1]]
-        if not err <= tol:
-            fail(f"{name} disagrees with its plain version on the served "
-                 f"path's inputs: {err} > {tol}")
+        err = gate_err(name, t.pop("max_abs_err"), args[0].dtype)
         errs[name] = max(errs[name], err)
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": launches[name],
-                     "max_abs_err": errs[name], **t})
+        rows.append(kernel_row(name, launches[name], errs[name], t))
+    return rows
+
+
+def gate_err(name, err, dtype):
+    """Fail unless a timed launch agreed with its plain version."""
+    tol = TOL[str(dtype).split(".")[-1]]
+    if not err <= tol:
+        fail(f"{name} disagrees with its plain version on the timed "
+             f"inputs: {err} > {tol}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b and recurrentgemma-9b on the engine's static path (K5; K4, K2
+# and K1 at hd 256)
+# ---------------------------------------------------------------------------
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+@contextlib.contextmanager
+def kernel_impls(impl):
+    """Every kernel of the model path at ``impl``: "auto" launches the
+    kernels, "reference" runs their plain versions."""
+    from repro_torch.models import attention, blocks
+    with attention.use_flash_impl(impl), attention.use_decode_impl(impl), \
+            blocks.use_scan_impl(impl):
+        yield
+
+
+def rel_rows(a, b) -> float:
+    """Largest relative L2 error of a row of ``a`` against ``b``."""
+    return float(((a.float() - b.float()).norm(dim=-1)
+                  / b.float().norm(dim=-1)).max())
+
+
+def serve_static(torch, arch, kernels, per_pass, per_step):
+    """Serve the mixed batch with ``arch`` at full width on the static
+    path through the kernels, then through their plain versions, and gate
+    on launch counts, well-formed results and kernel-vs-plain agreement
+    (SCORE prefill logits, decode-step logits on the same state, CLASSIFY
+    logprobs, EMBED cosine).  ``kernels`` maps each kernel name to
+    (ops module, wrapper name); ``per_pass`` / ``per_step`` give its
+    launches per full-sequence pass and per decode step.  Returns the
+    engine, the requests and the first launch of each kernel in each
+    pass: {name: [(args, kwargs), ...]}."""
+    from repro_torch.inference.engine import TorchInferenceEngine
+    from repro_torch.inference import tokenizer as tok
+    t0 = time.perf_counter()
+    eng = TorchInferenceEngine(arch, smoke=False, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"engine: {cfg.name} {cfg.num_layers} layers "
+          f"({'+'.join(cfg.period)} x {cfg.num_periods}"
+          f"{' + ' + '+'.join(cfg.tail) if cfg.tail else ''}) d_model "
+          f"{cfg.d_model} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
+          f"{cfg.dtype}, {n_params / 1e9:.2f} B params, backend "
+          f"{eng.backend}, built in {time.perf_counter() - t0:.1f} s; "
+          "depth not cut")
+    if eng.backend != "static":
+        fail(f"{arch} is not on the static path")
+    reqs = requests(arch)
+    eng.submit_batch(reqs[:1] + reqs[-1:])          # warm-up
+    model = eng.model
+    modes = []
+    step_ms = []
+
+    def counted(params, batch, *, mode, cache=None):
+        modes.append(mode)                  # launches below key on len()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model.apply(params, batch, mode=mode, cache=cache)
+        torch.cuda.synchronize()
+        if mode == "decode":
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    first = {}
+    spies = []
+    for name, (mod, fn) in kernels.items():
+        first[name], rec = first_launch_per_pass(lambda a: len(modes))
+        spies.append(Spy(mod, fn, rec))
+        mod.LAUNCHES = 0
+    lps, scores, ids = [], [], []
+    eng.model = dataclasses.replace(model, apply=counted)
+    try:
+        with contextlib.ExitStack() as stack:
+            for spy in spies:
+                stack.enter_context(spy)
+            stack.enter_context(Spy(eng, "_sequence_logprob",
+                                    lambda a, kw, out: lps.extend(out[0])))
+            stack.enter_context(Spy(eng, "_prefill",
+                                    lambda a, kw, out: scores.append(out[0])))
+            stack.enter_context(Spy(tok, "decode",
+                                    lambda a, kw, out: ids.append(list(a[0]))))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.submit_batch(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        eng.model = model
+    launches = {name: mod.LAUNCHES for name, (mod, _) in kernels.items()}
+    check_results(reqs, results)
+    passes = sum(m != "decode" for m in modes)
+    steps = sum(m == "decode" for m in modes)
+    expect = {name: per_pass[name] * passes + per_step[name] * steps
+              for name in kernels}
+    med = statistics.median(step_ms) if step_ms else float("nan")
+    print(f"{arch} served {len(reqs)} requests in {wall:.3f} s: {passes} "
+          f"full-sequence passes, {steps} decode steps (median "
+          f"{med:.3f} ms)")
+    print(f"{arch} launches: {launches}, expected {expect}")
+    if launches != expect or min(launches.values()) == 0:
+        fail(f"{arch}: kernel launch counts differ from the served path's "
+             "passes and steps")
+
+    # the same batch through the plain versions; each decode step's
+    # logits computed both ways on copies of the same state
+    probe = []
+    ref_lps, ref_scores, ref_ids = [], [], []
+
+    def probed(params, batch, *, mode, cache=None):
+        if mode == "decode":
+            with kernel_impls("auto"):
+                hk = model.apply(params, batch, mode=mode,
+                                 cache=clone_tree(cache))["hidden"]
+            hp = model.apply(params, batch, mode=mode,
+                             cache=clone_tree(cache))["hidden"]
+            lk = model.logits_of(params, hk[:, 0])
+            lp = model.logits_of(params, hp[:, 0])
+            probe.append((rel_rows(lk, lp), max_err(lk, lp),
+                          int((lk.argmax(-1) == lp.argmax(-1)).sum()),
+                          lk.shape[0]))
+        return model.apply(params, batch, mode=mode, cache=cache)
+
+    eng.model = dataclasses.replace(model, apply=probed)
+    try:
+        with kernel_impls("reference"), \
+                Spy(eng, "_sequence_logprob",
+                    lambda a, kw, out: ref_lps.extend(out[0])), \
+                Spy(eng, "_prefill",
+                    lambda a, kw, out: ref_scores.append(out[0])), \
+                Spy(tok, "decode",
+                    lambda a, kw, out: ref_ids.append(list(a[0]))):
+            ref_results = eng.submit_batch(reqs)
+    finally:
+        eng.model = model
+    check_results(reqs, ref_results)
+    tol = SERVE_TOL[arch]
+    if (len(lps) != len(ref_lps) or not lps or not probe
+            or len(scores) != len(ref_scores)):
+        fail(f"{arch}: the served path ran no CLASSIFY pass or no decode "
+             "step, or the two runs prefilled differently")
+    score_rel = max(rel_rows(a, b) for a, b in zip(scores, ref_scores))
+    logits_rel = max(p[0] for p in probe)
+    logits_abs = max(p[1] for p in probe)
+    top1 = (sum(p[2] for p in probe), sum(p[3] for p in probe))
+    d_lp = max(abs(a - b) for a, b in zip(lps, ref_lps))
+    cos = min(sum(x * y for x, y in zip(a.embedding, b.embedding))
+              for a, b in zip(results, ref_results) if a.kind == "embed")
+    d_score = max(abs(a.score - b.score) for a, b in
+                  zip(results, ref_results) if a.kind == "score")
+    agree = []
+    for a, b in zip(ids, ref_ids):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        agree.append(f"{n}/{max(len(a), len(b))}")
+    print(f"{arch} kernel vs plain: prefill logits over {len(scores)} "
+          f"passes max rel. L2 err {score_rel:.3g} (tol "
+          f"{tol['score_logits_rel']}), SCORE max |diff| {d_score:.3g}; "
+          f"decode-step logits over {len(probe)} steps max rel. L2 err "
+          f"{logits_rel:.3g} (tol {tol['decode_logits_rel']}), max |err| "
+          f"{logits_abs:.3g}, same top-1 token {top1[0]}/{top1[1]} rows")
+    print(f"{arch} kernel vs plain: CLASSIFY label logprobs {len(lps)} "
+          f"pairs max |err| {d_lp:.3g} nats (tol "
+          f"{tol['classify_logprob']}); EMBED min cosine {cos:.6f} (tol "
+          f"{tol['embed_cosine']}); COMPLETE leading tokens equal {agree} "
+          "(not gated)")
+    if not (score_rel <= tol["score_logits_rel"]
+            and logits_rel <= tol["decode_logits_rel"]
+            and d_lp <= tol["classify_logprob"]
+            and cos >= tol["embed_cosine"]):
+        fail(f"{arch}: the kernel-served and plain-served results disagree")
+    profile_served(torch, eng, reqs)
+    return eng, {name: [(a, kw) for _, a, kw in first[name]]
+                 for name in kernels}, launches
+
+
+def most_work(calls, work):
+    """The launch among ``calls`` with the most ``work(args)``."""
+    return max(calls, key=lambda c: work(c[0]))
+
+
+def kernel_row(name, launches, err, t, **extra):
+    """A row of the kernels line for ``name`` (a key of KERNEL_FILES)."""
+    src, tpu = KERNEL_FILES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches, "max_abs_err": err, **t, **extra}
+
+
+def time_rglru(torch, rglru_ops, what, a, b, h0, iters=50):
+    out = rglru_ops.rglru_scan_cuda(a, b, h0)
+    ref = rglru_ops.rglru_scan(a, b, h0, impl="reference")
+    err = max(max_err(out[0], ref[0]), max_err(out[1], ref[1]))
+    if err != 0.0:
+        fail(f"K4 {what}: differs from its plain version by {err}")
+    B, S, W = a.shape
+    ms = cuda_time_ms(lambda: rglru_ops.rglru_scan_cuda(a, b, h0), iters)
+    plain_ms = cuda_time_ms(lambda: rglru_ops.rglru_scan(
+        a, b, h0, impl="reference"), 3, warmup=1)
+    es = a.element_size()
+    nbytes = 2 * es * B * S * W + 4 * (B * S * W + 2 * B * W)
+    b_ms, b_by = bound(nbytes, 2.0 * B * S * W, "float32")
+    print(f"time K4 rglru {what} B={B} S={S} W={W} "
+          f"{str(a.dtype).split('.')[-1]}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}); "
+          f"max|err| {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+
+
+def time_rwkv(torch, rwkv_ops, what, r, k, v, w, u, s0, iters=20):
+    out = rwkv_ops.rwkv6_scan_cuda(r, k, v, w, u, s0)
+    ref = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0, impl="reference")
+    err = max(max_err(out[0], ref[0]), max_err(out[1], ref[1]))
+    rel = max(rel_err(out[0], ref[0]), rel_err(out[1], ref[1]))
+    if not rel <= TOL["float32"]:
+        fail(f"K5 {what}: relative error {rel} against its plain version")
+    B, S, H, hd = r.shape
+    ms = cuda_time_ms(lambda: rwkv_ops.rwkv6_scan_cuda(r, k, v, w, u, s0),
+                      iters)
+    plain_ms = cuda_time_ms(lambda: rwkv_ops.rwkv6_scan(
+        r, k, v, w, u, s0, impl="reference"), 2, warmup=1)
+    n = B * S * H * hd
+    nbytes = (3 * r.element_size() * n + 4 * n + 4 * n   # r,k,v; w; o
+              + 4 * H * hd + 2 * 4 * B * H * hd * hd)   # u; s0, sT
+    b_ms, b_by = bound(nbytes, 5.0 * n * hd, "float32")
+    print(f"time K5 rwkv6 {what} B={B} S={S} H={H} hd={hd} "
+          f"{str(r.dtype).split('.')[-1]}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}); "
+          f"max|err| {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+
+
+def rwkv_path(torch, errs):
+    """rwkv6-1.6b served at full width; K5 timed at the served launch with
+    the most work and at the full shape.  Returns K5's kernels-line row."""
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    L = 24
+    eng, calls, launches = serve_static(
+        torch, "rwkv6-1.6b", {"rwkv6_scan": (rwkv_ops, "rwkv6_scan_cuda")},
+        {"rwkv6_scan": L}, {"rwkv6_scan": L})
+    if eng.cfg.num_layers != L or eng.cfg.d_model != 2048:
+        fail("rwkv6-1.6b is not at full width and depth")
+    args, _ = most_work(calls["rwkv6_scan"], lambda a: a[0].numel())
+    t = time_rwkv(torch, rwkv_ops, "served", *args)
+    dev = args[0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    B, S, H, hd = 8, 384, 32, 64
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    full = time_rwkv(torch, rwkv_ops, "full", r, k, v,
+                     decays(torch, gen, (B, S, H, hd), dev),
+                     torch.randn((H, hd), generator=gen, device=dev) * 0.1,
+                     torch.zeros((B, H, hd, hd), device=dev))
+    err = max(errs["rwkv6_scan"], t.pop("max_abs_err"),
+              full.pop("max_abs_err"))
+    errs["rwkv6_scan"] = err
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [kernel_row("rwkv6_scan", launches["rwkv6_scan"], err, t,
+                       path="rwkv6-1.6b", full_ms=full["ms"])]
+
+
+def recurrentgemma_path(torch, errs):
+    """recurrentgemma-9b served at full width; K4 and K2 / K1 at hd 256
+    timed at the served launches with the most work and at the full
+    shapes.  Returns their kernels-line rows."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    n_lru, n_local = 26, 12
+    eng, calls, launches = serve_static(
+        torch, "recurrentgemma-9b",
+        {"rglru_scan": (rglru_ops, "rglru_scan_cuda"),
+         "flash_attention": (flash_ops, "flash_attention_cuda"),
+         "decode_attention": (dec_ops, "decode_attention_cuda")},
+        {"rglru_scan": n_lru, "flash_attention": n_local,
+         "decode_attention": 0},
+        {"rglru_scan": 0, "flash_attention": 0, "decode_attention": n_local})
+    cfg = eng.cfg
+    if (cfg.num_layers != 38 or cfg.d_model != 4096
+            or cfg.block_pattern.count("rglru") != n_lru
+            or cfg.block_pattern.count("local") != n_local):
+        fail("recurrentgemma-9b is not at full width and depth")
+    rows = []
+    a_args, _ = most_work(calls["rglru_scan"], lambda a: a[0].numel())
+    t = time_rglru(torch, rglru_ops, "served", *a_args)
+    dev = a_args[0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    B, S, W = 8, 384, 4096
+    full = time_rglru(torch, rglru_ops, "full",
+                      decays(torch, gen, (B, S, W), dev),
+                      torch.randn((B, S, W), generator=gen, device=dev),
+                      torch.zeros((B, W), device=dev))
+    err = max(errs["rglru_scan"], t.pop("max_abs_err"),
+              full.pop("max_abs_err"))
+    errs["rglru_scan"] = err
+    rows.append(kernel_row("rglru_scan", launches["rglru_scan"], err, t,
+                           path="recurrentgemma-9b", full_ms=full["ms"]))
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    f_args, f_kw = most_work(calls["flash_attention"],
+                             lambda a: a[0].numel())
+    t = time_flash(torch, flash_ops, *f_args, **f_kw)
+    full = time_flash(torch, flash_ops, r(8, 384, 16, 256),
+                      r(8, 384, 1, 256), r(8, 384, 1, 256), window=2048,
+                      iters=20)
+    err = max(errs["flash_attention@hd256"],
+              gate_err("K2", t.pop("max_abs_err"), f_args[0].dtype),
+              gate_err("K2", full.pop("max_abs_err"), torch.bfloat16))
+    rows.append(kernel_row("flash_attention", launches["flash_attention"],
+                           err, t, path="recurrentgemma-9b",
+                           full_ms=full["ms"]))
+    d_args, _ = most_work(calls["decode_attention"],
+                          lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
+    t = time_decode(torch, dec_ops, *d_args)
+    full = time_decode(torch, dec_ops, r(8, 1, 16, 256), r(8, 2048, 1, 256),
+                       r(8, 2048, 1, 256),
+                       torch.full((8,), 2048, dtype=torch.int32, device=dev))
+    err = max(errs["decode_attention@hd256"],
+              gate_err("K1", t.pop("max_abs_err"), d_args[0].dtype),
+              gate_err("K1", full.pop("max_abs_err"), torch.bfloat16))
+    rows.append(kernel_row("decode_attention", launches["decode_attention"],
+                           err, t, path="recurrentgemma-9b",
+                           full_ms=full["ms"]))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -677,11 +1174,8 @@ def index_path(torch, eng, errs):
     t = time_topk(torch, topk_ops, "served flat search", q, c, k_flat)
     errs["similarity_topk"] = max(errs["similarity_topk"], err,
                                   t.pop("max_abs_err"))
-    return {"name": "similarity_topk", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/similarity_topk.cu",
-            "replaces": "src/repro/kernels/similarity_topk/kernel.py:69",
-            "launches": launches,
-            "max_abs_err": errs["similarity_topk"], **t}
+    return kernel_row("similarity_topk", launches, errs["similarity_topk"],
+                      t)
 
 
 def topk_bound(Q, N, D, k):
@@ -753,13 +1247,16 @@ def main() -> int:
 
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
     from repro_torch.kernels.similarity_topk import ops as topk_ops
     from repro_torch.inference.engine import TorchInferenceEngine
 
     # 1-2. build, then hold each kernel against its plain version
-    build_kernels(dec_ops, flash_ops, topk_ops)
+    build_kernels(dec_ops, flash_ops, topk_ops, rglru_ops, rwkv_ops)
     errs = check_kernels(torch, dec_ops, flash_ops, dev)
     errs["similarity_topk"] = check_topk(torch, topk_ops, dev)
+    check_scans(torch, rglru_ops, rwkv_ops, dev, errs)
 
     # 3. serve one mixed batch with proxy-8b at full width
     t0 = time.perf_counter()
@@ -775,13 +1272,18 @@ def main() -> int:
           f"({cfg.num_layers} of {N_LAYERS} layers)")
     if cfg.num_layers != N_LAYERS or cfg.d_model != 4096:
         fail("proxy-8b is not at full width")
-    rows = serve_and_check(torch, eng, errs)
+    rows = [r | {"path": "proxy-8b"} for r in serve_and_check(torch, eng,
+                                                              errs)]
     # 7. the semantic index on the same engine, through K3
-    rows.append(index_path(torch, eng, errs))
+    rows.append(index_path(torch, eng, errs) | {"path": "semantic index"})
     long_shapes(torch, dec_ops, flash_ops, dev)
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     topk_full_shapes(torch, topk_ops, dev)
+    # 8-9. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
+    rows += rwkv_path(torch, errs)
+    rows += recurrentgemma_path(torch, errs)
 
     print(card)
     print(json.dumps({"kernels": rows}))

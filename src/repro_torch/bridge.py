@@ -2,10 +2,12 @@
 port's parameters.
 
 The JAX tree stacks each period position's params on a leading ``[P, ...]``
-axis (``params["periods"]["b{i}"]``); the port keeps a list of per-layer
-dicts (layer ``p * len(period) + i``).  bfloat16 is not a numpy type: a JAX
-bf16 array converts to a numpy array of the ``ml_dtypes`` bfloat16 dtype,
-which goes through float32 here (exactly) and back to torch bfloat16.
+axis (``params["periods"]["b{i}"]``) and keeps the tail's blocks unstacked
+(``params["tail"]["t{i}"]``); the port keeps one list of per-layer dicts
+(layer ``p * len(period) + i``, then the tail's).  bfloat16 is not a
+numpy type: a JAX bf16 array converts to a numpy array of the
+``ml_dtypes`` bfloat16 dtype, which goes through float32 here (exactly)
+and back to torch bfloat16.
 This module imports no JAX: the caller does the JAX-to-numpy step, e.g.
 ``jax.tree.map(np.asarray, params)``.
 """
@@ -35,17 +37,24 @@ def _convert(tree, fn):
 
 def params_from_jax(cfg: cfgs.ModelConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
-    """JAX param tree of numpy arrays -> port params on ``device``."""
-    if cfg.tail:
-        raise NotImplementedError("tail blocks are not yet ported")
-    out: Dict[str, Any] = {
-        k: _convert(tree[k], lambda a: tensor_from_numpy(a, device))
-        for k in ("embed", "final_norm", "lm_head")}
+    """JAX param tree of numpy arrays -> port params on ``device``.  The
+    tail's blocks (``tree["tail"]["t{i}"]``) follow the periods' layers;
+    a tree with tied embeddings has no ``lm_head``.  Every leaf keeps its
+    dtype (RWKV-6's ``u``, ``w0`` and ``gn_*`` and RG-LRU's gates stay
+    fp32 beside bf16 weights)."""
+    def conv(a):
+        return tensor_from_numpy(a, device)
+
+    out: Dict[str, Any] = {k: _convert(tree[k], conv)
+                           for k in ("embed", "final_norm", "lm_head")
+                           if k in tree}
     n = len(cfg.period)
     layers = []
-    for layer in range(cfg.num_layers):
+    for layer in range(cfg.num_periods * n):
         p, i = divmod(layer, n)
         layers.append(_convert(tree["periods"][f"b{i}"],
                                lambda a, p=p: tensor_from_numpy(a[p], device)))
+    for i in range(len(cfg.tail)):
+        layers.append(_convert(tree["tail"][f"t{i}"], conv))
     out["layers"] = layers
     return out

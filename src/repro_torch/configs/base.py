@@ -185,8 +185,9 @@ class ModelConfig:
         return self.param_count() - inactive * n_moe_layers
 
 
-# Architectures the port implements: pure global-attention dense decoders.
-PORTED_IDS = ("proxy-8b",)
+# Architectures the port implements: the dense global-attention decoder,
+# the attention-free RWKV-6 model and the RG-LRU / local-attention hybrid.
+PORTED_IDS = ("proxy-8b", "rwkv6-1.6b", "recurrentgemma-9b")
 
 # Every architecture the JAX package hosts; the ones missing from
 # PORTED_IDS are queued for later slices of the port.
@@ -196,7 +197,11 @@ KNOWN_IDS = (
     "qwen2-vl-7b", "rwkv6-1.6b", "proxy-8b", "oracle-70b",
 )
 
-_MODULE_FOR = {"proxy-8b": "proxy_8b"}
+_MODULE_FOR = {
+    "proxy-8b": "proxy_8b",
+    "rwkv6-1.6b": "rwkv6_16b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+}
 
 
 def _module(arch: str):

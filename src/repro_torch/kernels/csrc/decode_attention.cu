@@ -12,15 +12,23 @@
 // loaded element, far below the ~295 flop/byte the card needs before its
 // tensor cores matter.  The design therefore reads each K/V row exactly once
 // per (batch row, kv head), not once per query head: one thread block holds
-// all G query heads of a GQA group, so a byte of cache feeds G heads.  It
+// all G query heads of a GQA group, so a byte of cache feeds G heads (at
+// G = 16, four blocks of 4 heads each read it, see below).  It
 // reads the model's cache layout [B, Smax, KV, hd] through strides, with no
 // transpose pass before it, and only up to `length`.
 //
-// Layout of the work: one block of HD threads per (kv head, batch row).
-//   scores   8 lanes per key, each holding HD/8 dims of the key and of the G
-//            query rows; a 3-step shuffle sums the partial dots.
+// Layout of the work: one block of HD threads per (kv head, batch row,
+// group of GB query heads).  GB is the whole GQA group G up to G = 8; at
+// G = 16 (recurrentgemma's local attention: 16 q heads on 1 kv head)
+// the group splits into four blocks of GB = 4 heads along the grid's z
+// axis, each reading the same K/V rows (from L2 after the first), which
+// keeps the query rows in registers: 16 rows x 16 dims a lane would not
+// fit.
+//   scores   LPK lanes per key (8, or 16 at HD = 256), each holding 16
+//            dims of the key (8 at HD = 64) and of the GB query rows; a
+//            log2(LPK)-step shuffle sums the partial dots.
 //   softmax  one warp per query row, 2 scores a lane, over a 64-key tile.
-//   P @ V    thread d owns output dim d for all G rows.
+//   P @ V    thread d owns output dim d for all GB rows.
 // Reductions run in a fixed order and there are no atomics, so the result
 // repeats bit for bit from run to run.
 //
@@ -33,43 +41,44 @@ namespace {
 using repro::NEG_INF;
 
 constexpr int TK = 64;   // keys per tile
-constexpr int LPK = 8;   // lanes per key in the score phase
 
-template <typename T, int HD, int G>
+template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(HD) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, T* __restrict__ out,
     float* __restrict__ lse, int H, int Smax, long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_sh,
-    float scale) {
+    float scale, int G) {
+  constexpr int LPK = HD >= 256 ? 16 : 8;   // lanes per key, score phase
   constexpr int NW = HD / 32;          // warps
   constexpr int CH = HD / LPK;         // dims per lane in the score phase
   constexpr int KPW = 32 / LPK;        // keys per warp per pass
   static_assert(TK % (NW * KPW) == 0, "tile must split evenly over warps");
   static_assert(TK == 64, "softmax phase holds 2 scores per lane");
 
-  __shared__ float s_p[G][TK];
-  __shared__ float s_alpha[G];
-  __shared__ float s_m[G];
-  __shared__ float s_l[G];
+  __shared__ float s_p[GB][TK];
+  __shared__ float s_alpha[GB];
+  __shared__ float s_m[GB];
+  __shared__ float s_l[GB];
 
   const int c = blockIdx.x;            // kv head
   const int b = blockIdx.y;            // batch row
+  const int h0 = c * G + blockIdx.z * GB;   // first q head of the block
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int sub = lane / LPK, part = lane % LPK;
   const int length = max(0, min(lengths[b], Smax));
 
-  float qr[G][CH];
+  float qr[GB][CH];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    repro::load_row<CH>(q + b * q_sb + (c * G + g) * q_sh + part * CH, qr[g]);
+  for (int g = 0; g < GB; ++g)
+    repro::load_row<CH>(q + b * q_sb + (h0 + g) * q_sh + part * CH, qr[g]);
 
-  float acc[G];
+  float acc[GB];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  if (tid < G) {
+  for (int g = 0; g < GB; ++g) acc[g] = 0.f;
+  if (tid < GB) {
     s_m[tid] = NEG_INF;
     s_l[tid] = 0.f;
   }
@@ -91,20 +100,20 @@ __global__ void __launch_bounds__(HD) decode_attention_kernel(
         for (int i = 0; i < CH; ++i) kr[i] = 0.f;
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         float d = 0.f;
 #pragma unroll
         for (int i = 0; i < CH; ++i) d = fmaf(qr[g][i], kr[i], d);
-        d += __shfl_xor_sync(0xffffffffu, d, 4);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
         if (part == 0) s_p[g][j] = ok ? d * scale : NEG_INF;
       }
     }
     __syncthreads();
 
     // -- online softmax: one warp per query row -------------------------
-    for (int g = warp; g < G; g += NW) {
+    for (int g = warp; g < GB; g += NW) {
       const float s0 = s_p[g][lane], s1 = s_p[g][lane + 32];
       const bool ok0 = t0 + lane < length, ok1 = t0 + lane + 32 < length;
       float mx = fmaxf(s0, s1);
@@ -134,42 +143,42 @@ __global__ void __launch_bounds__(HD) decode_attention_kernel(
     // -- acc = acc * alpha + P @ V: thread tid owns dim tid -------------
     const int nk = min(TK, length - t0);
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] *= s_alpha[g];
+    for (int g = 0; g < GB; ++g) acc[g] *= s_alpha[g];
     const T* vt = vb + (long long)t0 * v_ss + tid;
 #pragma unroll 8
     for (int j = 0; j < nk; ++j) {
       const float vv = repro::to_f32(vt[j * v_ss]);
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = fmaf(s_p[g][j], vv, acc[g]);
+      for (int g = 0; g < GB; ++g) acc[g] = fmaf(s_p[g][j], vv, acc[g]);
     }
     __syncthreads();   // s_p is rewritten by the next tile
   }
 
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GB; ++g) {
     const float l = s_l[g];
     const float lsafe = (l == 0.f) ? 1.f : l;
-    out[b * o_sb + (c * G + g) * o_sh + tid] =
+    out[b * o_sb + (h0 + g) * o_sh + tid] =
         repro::from_f32<T>(acc[g] / lsafe);
   }
-  if (lse != nullptr && tid < G) {
+  if (lse != nullptr && tid < GB) {
     const float l = s_l[tid];
     const float lsafe = (l == 0.f) ? 1.f : l;
-    lse[(long long)b * H + c * G + tid] = s_m[tid] + logf(lsafe);
+    lse[(long long)b * H + h0 + tid] = s_m[tid] + logf(lsafe);
   }
 }
 
-template <typename T, int HD, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <typename T, int HD, int GB>
+cudaError_t launch(int G, const void* q, const void* k, const void* v,
                    const int* lengths, void* out, float* lse, int B, int H,
                    int KV, int Smax, const long long* st, float scale,
                    cudaStream_t stream) {
-  dim3 grid(KV, B);
-  decode_attention_kernel<T, HD, G><<<grid, HD, 0, stream>>>(
+  dim3 grid(KV, B, G / GB);
+  decode_attention_kernel<T, HD, GB><<<grid, HD, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, H, Smax,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      scale);
+      scale, G);
   return cudaGetLastError();
 }
 
@@ -179,10 +188,11 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                        int H, int KV, int Smax, const long long* st,
                        float scale, cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
-    case 2: return launch<T, HD, 2>(q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
-    case 4: return launch<T, HD, 4>(q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
-    case 8: return launch<T, HD, 8>(q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 1: return launch<T, HD, 1>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 2: return launch<T, HD, 2>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 4: return launch<T, HD, 4>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 8: return launch<T, HD, 8>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 16: return launch<T, HD, 4>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -196,6 +206,7 @@ cudaError_t dispatch_hd(int hd, int G, const void* q, const void* k,
   switch (hd) {
     case 64: return dispatch_g<T, 64>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
     case 128: return dispatch_g<T, 128>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
+    case 256: return dispatch_g<T, 256>(G, q, k, v, lengths, out, lse, B, H, KV, Smax, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

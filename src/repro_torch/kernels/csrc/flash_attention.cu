@@ -20,7 +20,9 @@
 // writes the output in the model's [B, S, heads, hd] layout through strides
 // (no transpose passes).  Each (q tile, q head) block re-reads its kv head's
 // tiles, mostly from L2; one block per GQA group, wgmma and TMA loads are
-// later work.
+// later work.  At hd = 256 (recurrentgemma's local attention: 16 q heads
+// on one kv head, window 2048) the same holds: at S = 384 about 120
+// flops per byte, bound by bytes.
 //
 // Two variants share that algorithm:
 //   bf16 (the served model): products on the tensor cores with mma.sync
@@ -230,6 +232,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// The A fragment of Q for k-step ks (rows r0 and r0 + 8) from sQ.
+template <int HD>
+__device__ __forceinline__ void q_frag(const __nv_bfloat16* sQ, int r0,
+                                       int ks, int t, uint32_t (&a)[4]) {
+  constexpr int LD = HD + 8;
+  const __nv_bfloat16* p = sQ + r0 * LD + ks * 16 + 2 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -263,14 +277,14 @@ __global__ void __launch_bounds__(NT) flash_attention_mma_kernel(
   load_tile<HD>(sQ, qb + q0 * q_ss, q_ss, MQ, Sq - q0, tid);
   __syncthreads();
   const int r0 = warp * 16 + g;    // this thread's rows: r0 and r0 + 8
-  uint32_t qa[KS][4];
+  // Q's A fragments: held in registers up to HD = 128; at HD = 256 they
+  // would take 64 registers beside the 128 of O, so they are read from
+  // sQ (which stays resident) at each use instead.
+  constexpr bool QREG = HD <= 128;
+  uint32_t qa[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p = sQ + r0 * LD + ks * 16 + 2 * t;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+    for (int ks = 0; ks < KS; ++ks) q_frag<HD>(sQ, r0, ks, t, qa[ks]);
   }
 
   const int qpos_lo = q0 + q_off;
@@ -301,7 +315,14 @@ __global__ void __launch_bounds__(NT) flash_attention_mma_kernel(
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const __nv_bfloat16* p = sK + (j * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_16816(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(p),
+        uint32_t a[4];
+        if constexpr (QREG) {
+          a[0] = qa[ks][0]; a[1] = qa[ks][1];
+          a[2] = qa[ks][2]; a[3] = qa[ks][3];
+        } else {
+          q_frag<HD>(sQ, r0, ks, t, a);
+        }
+        mma_16816(s[j], a, *reinterpret_cast<const uint32_t*>(p),
                   *reinterpret_cast<const uint32_t*>(p + 8));
       }
     }
@@ -426,6 +447,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -23,8 +23,8 @@ LIB = build.CudaLibrary("decode_attention.cu", {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p],
 })
-HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (64, 128, 256)
+GROUPS = (1, 2, 4, 8, 16)
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).

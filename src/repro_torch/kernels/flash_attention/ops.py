@@ -22,7 +22,7 @@ LIB = build.CudaLibrary("flash_attention.cu", {
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 })
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).

@@ -14,6 +14,13 @@ hand-written CUDA kernel:
 Decode with several new tokens per row (chunked prefill) keeps the dense
 ``_attn_block``: its per-row query offsets do not fit the flash kernel's
 single offset.
+
+Sliding-window layers (``LOCAL_ATTN``) take the same two kernels: the
+full-sequence pass is :func:`causal_attention` with ``window`` (K2 in
+window mode on the card; the JAX package's chunked banded
+``local_attention`` computes the same function), and a decode step is
+K1 over the layer's ring buffer of the last W tokens
+(:func:`ring_decode_attention`), whose valid slots are always a prefix.
 """
 from __future__ import annotations
 
@@ -142,6 +149,62 @@ def decode_attention(q, k_cache, v_cache, lengths):
     valid = kv_pos < lengths[:, None]                          # [B,Smax]
     return _attn_block(q, k_cache, v_cache, q_pos, kv_pos.expand(B, Smax),
                        causal=True, kv_valid=valid)
+
+
+def ring_decode_attention(q, k_ring, v_ring, pos, window: int):
+    """Sliding-window decode against a ring buffer of the last W tokens.
+
+    q: [B,1,H,hd]; k_ring,v_ring: [B,W,KV,hd]; pos: [B] absolute position
+    of the new token (already written to slot pos % W).  The valid slots
+    of the ring are always its first min(pos+1, W): slot j holds the
+    largest position <= pos congruent to j (mod W), which is negative, and
+    invalid, exactly for j > pos.  Softmax ignores order, so on a CUDA
+    device (or on the CPU under ``use_decode_impl("auto")``) this is
+    flash-decode over the ring with lengths min(pos+1, W); on the CPU
+    otherwise the dense masked block of the JAX package.
+    """
+    B, T, H, hd = q.shape
+    if T != 1:
+        raise ValueError("ring decode is single-token")
+    W = window
+    if q.is_cuda or _DECODE_IMPL != "dense":
+        impl = "reference" if _DECODE_IMPL == "reference" else "auto"
+        lengths = torch.clamp(pos + 1, max=W).to(torch.int32)
+        return dec_ops.flash_decode(q, k_ring, v_ring, lengths, impl=impl)
+    j = torch.arange(W, dtype=torch.int32, device=q.device)[None]   # [1,W]
+    p = pos.to(torch.int32)[:, None]                                  # [B,1]
+    slot_pos = p - torch.remainder(p - j, W)                          # [B,W]
+    return _attn_block(q, k_ring, v_ring, p, slot_pos, causal=True,
+                       window=W, kv_valid=slot_pos >= 0)
+
+
+def write_kv_ring(cache_k, cache_v, k_new, v_new, pos, window: int):
+    """Write single-token k/v [B,1,KV,hd] at ring slot pos % window, in
+    place, and return the rings."""
+    B = k_new.shape[0]
+    slot = torch.remainder(pos.long(), window)
+    bidx = torch.arange(B, device=pos.device)
+    cache_k[bidx, slot] = k_new[:, 0]
+    cache_v[bidx, slot] = v_new[:, 0]
+    return cache_k, cache_v
+
+
+def fill_ring(ring_k, ring_v, k, v, lengths, window: int):
+    """Prefill's ring: the last W *valid* tokens of k, v [B,S,KV,hd]; slot
+    j holds the largest valid position congruent to j (mod W), zeros
+    where there is none.  Written into the rings [B,W,KV,hd] in place (a
+    gather, so padding never races a scatter)."""
+    B, S = k.shape[:2]
+    W = window
+    q_last = (lengths.to(torch.int64) - 1)[:, None]                  # [B,1]
+    j = torch.arange(W, device=k.device)[None]                        # [1,W]
+    src = q_last - torch.remainder(q_last - j, W)                     # [B,W]
+    ok = (src >= 0)[..., None, None]
+    srcc = src.clamp(0, S - 1)
+    bidx = torch.arange(B, device=k.device)[:, None]
+    ring_k.copy_(torch.where(ok, k[bidx, srcc], torch.zeros_like(ring_k)))
+    ring_v.copy_(torch.where(ok, v[bidx, srcc], torch.zeros_like(ring_v)))
+    return ring_k, ring_v
 
 
 def write_kv(cache_k, cache_v, k_new, v_new, start):

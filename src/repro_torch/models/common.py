@@ -71,6 +71,18 @@ def apply_norm(params: Params, x: torch.Tensor, eps: float = 1e-6
     return y.to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm of RWKV-6: x [..., H, hd] -> [..., H * hd],
+    statistics and affine in fp32, result cast back to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y.reshape(y.shape[:-2] + (y.shape[-2] * y.shape[-1],))
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # linear / mlp
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Model interface of the PyTorch port: ``build(arch)`` returns a
-:class:`Model` with init/apply/cache entry points, for the dense
-pure-global-attention decoders the port implements so far."""
+:class:`Model` with init/apply/cache entry points, for the decoders the
+port implements so far: dense global attention, sliding-window
+attention, RG-LRU and RWKV-6 blocks, with tail blocks and tied or scaled
+embeddings."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,9 +28,6 @@ class Model:
 
 def _unported_features(cfg: cfgs.ModelConfig):
     feats = {
-        "non-attention or windowed blocks": any(
-            b != cfgs.ATTN for b in cfg.block_pattern),
-        "tail blocks": bool(cfg.tail),
         "mixture of experts": cfg.moe is not None,
         "encoder-decoder": cfg.is_encoder_decoder,
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
@@ -37,8 +36,6 @@ def _unported_features(cfg: cfgs.ModelConfig):
         "qk norm": cfg.qk_norm,
         "biases": cfg.use_bias,
         "parallel blocks": cfg.parallel_block,
-        "tied embeddings": cfg.tie_embeddings,
-        "scaled embeddings": cfg.scale_embedding,
     }
     return [name for name, on in feats.items() if on]
 
@@ -52,8 +49,7 @@ def build(arch: Union[str, cfgs.ModelConfig], *, smoke: bool = False
     missing = _unported_features(cfg)
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not yet ported ({', '.join(missing)}); the port "
-            "builds dense pure-attention decoders")
+            f"{cfg.name}: not yet ported ({', '.join(missing)})")
     return Model(
         cfg=cfg,
         init_params=functools.partial(lm.init_params, cfg),

@@ -7,10 +7,16 @@ only PyTorch:
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 2e-4 (summation
 order differs), bf16 5e-2 (outputs round to bf16 at different points).
-K3 (similarity top-k) is held tighter: values within 1e-5, ids equal
+K4 (RG-LRU scan) is held to its plain version bit for bit (both round
+the multiply and the add separately in fp32); K5 (RWKV-6 scan) within
+2e-4 of the largest plain value (fp32 sums in another order).  K3
+(similarity top-k) is held tighter: values within 1e-5, ids equal
 except between rows whose plain-version scores lie within 1e-5 of each
 other, and ids exactly equal on sign vectors, where every score is exact.
 """
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,9 +25,12 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops  # noqa: E402
 from repro_torch.kernels.similarity_topk import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.similarity_topk.ref import topk_flips  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
+from repro_torch.configs import base as cfgs  # noqa: E402
+from repro_torch.models import attention, blocks, model_zoo  # noqa: E402
 from repro_torch.semindex import (IvfConfig, IvfFlatIndex,  # noqa: E402
                                   SemanticIndexManager, SemIndexConfig)
 
@@ -45,8 +54,8 @@ def _randn(seed, shapes, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_decode_kernel(cuda, dtype, hd, G):
     B, Smax, KV = 5, 300, 2
     H = KV * G
@@ -144,6 +153,170 @@ def test_model_attention_launches_the_kernels(cuda, impl):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
     torch.testing.assert_close(dec.float(), dec_ref.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,window", [(130, 0), (384, 2048), (384, 100),
+                                       (37, 16)])
+def test_flash_kernel_hd256(cuda, dtype, Sq, window):
+    """K2 at recurrentgemma's attention widths: hd 256, 16 q heads on one
+    kv head, in window mode with the window shorter and longer than S."""
+    B, H, KV, hd = 2, 16, 1, 256
+    q, k, v = _randn(21, [(B, Sq, H, hd), (B, Sq, KV, hd), (B, Sq, KV, hd)],
+                     dtype, cuda)
+    before = flash_ops.LAUNCHES
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    ref = flash_ops.flash_attention(q, k, v, window=window, impl="reference")
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(flash_ops.flash_attention(q, k, v, window=window), out)
+
+
+# ---------------------------------------------------------------------------
+# K4: RG-LRU scan; K5: RWKV-6 scan
+# ---------------------------------------------------------------------------
+
+
+def _decays(seed, shape, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.sigmoid(torch.randn(shape, generator=g, device=device) + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (8, 384, 4096), (5, 1, 64),
+                                   (1, 9, 1000)])
+def test_rglru_kernel(cuda, dtype, B, S, W):
+    a = _decays(22, (B, S, W), cuda).to(dtype)
+    b, h0 = _randn(23, [(B, S, W), (B, W)], dtype, cuda)
+    h0 = h0.float()
+    before = rglru_ops.LAUNCHES
+    hs, hT = rglru_ops.rglru_scan(a, b, h0)
+    ref_hs, ref_hT = rglru_ops.rglru_scan(a, b, h0, impl="reference")
+    torch.cuda.synchronize()
+    assert rglru_ops.LAUNCHES == before + 1
+    assert hs.dtype == hT.dtype == torch.float32
+    assert torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+
+
+def _rwkv(seed, B, S, H, hd, dtype, device):
+    r, k, v = _randn(seed, [(B, S, H, hd)] * 3, dtype, device)
+    u, s0 = _randn(seed + 1, [(H, hd), (B, H, hd, hd)], torch.float32,
+                   device)
+    return r, k, v, _decays(seed + 2, (B, S, H, hd), device), u * 0.1, s0
+
+
+def _close_rel(x, ref, tol=2e-4):
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((x - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(3, 37, 5, 64), (8, 384, 32, 64),
+                                      (2, 19, 3, 16), (1, 1, 32, 64),
+                                      (2, 20, 7, 16)])
+def test_rwkv6_kernel(cuda, dtype, B, S, H, hd):
+    args = _rwkv(24, B, S, H, hd, dtype, cuda)
+    before = rwkv_ops.LAUNCHES
+    o, sT = rwkv_ops.rwkv6_scan(*args)
+    ref_o, ref_sT = rwkv_ops.rwkv6_scan(*args, impl="reference")
+    torch.cuda.synchronize()
+    assert rwkv_ops.LAUNCHES == before + 1
+    assert o.dtype == sT.dtype == torch.float32
+    _close_rel(o, ref_o)
+    _close_rel(sT, ref_sT)
+    again = rwkv_ops.rwkv6_scan(*args)
+    assert torch.equal(again[0], o) and torch.equal(again[1], sT)
+
+
+def test_rwkv6_kernel_state_chaining(cuda):
+    """Two launches over the halves, the second from the first's state,
+    equal one launch over the whole sequence."""
+    r, k, v, w, u, s0 = _rwkv(25, 2, 64, 4, 64, torch.float32, cuda)
+    o, sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+    o1, s1 = rwkv_ops.rwkv6_scan(r[:, :32], k[:, :32], v[:, :32], w[:, :32],
+                                 u, s0)
+    o2, s2 = rwkv_ops.rwkv6_scan(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:],
+                                 u, s1)
+    _close_rel(torch.cat([o1, o2], 1), o)
+    _close_rel(s2, sT)
+
+
+def test_scan_kernels_reject_unsupported(cuda):
+    r, k, v, w, u, s0 = _rwkv(26, 1, 4, 2, 128, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)           # hd 128
+    a = w[:, :, 0].half()                                 # [B,S,W] fp16
+    with pytest.raises(TypeError):
+        rglru_ops.rglru_scan(a, a, s0[:, 0, 0])
+    with pytest.raises(ValueError):
+        rglru_ops.rglru_scan(w, w, s0[:, 0, 0])           # not [B,S,W]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent smoke models on the card: every scan and attention through
+# its kernel, counted, and held to the plain path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_smoke_model_through_kernels(cuda, arch):
+    """The smoke model in fp32 (recurrentgemma at head_dim 64, which K1
+    and K2 take): a ragged prefill longer than the window of 32, then
+    decode steps past the ring's wrap.  Each pass launches K5 once per
+    RWKV layer, K4 once per RG-LRU layer and K2 once per sliding-window
+    layer; each decode step K5 per RWKV layer and K1 per sliding-window
+    layer (RG-LRU decode is elementwise).  Logits equal the plain path's
+    (every scan and attention through its plain version) within 2e-4."""
+    cfg = cfgs.get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              head_dim=64 if cfg.attention_window else
+                              cfg.head_dim)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(gen)
+    n_rwkv = cfg.block_pattern.count(cfgs.RWKV)
+    n_lru = cfg.block_pattern.count(cfgs.RGLRU)
+    n_local = cfg.block_pattern.count(cfgs.LOCAL_ATTN)
+    B, S = 2, 40
+    toks = torch.randint(4, cfg.vocab_size, (B, S), generator=gen,
+                         device=cuda)
+    lens = torch.tensor([40, 29], dtype=torch.int32, device=cuda)
+
+    def counts():
+        return (rwkv_ops.LAUNCHES, rglru_ops.LAUNCHES, flash_ops.LAUNCHES,
+                dec_ops.LAUNCHES)
+
+    def serve(reference):
+        ctx = contextlib.ExitStack()
+        if reference:
+            ctx.enter_context(blocks.use_scan_impl("reference"))
+            ctx.enter_context(attention.use_flash_impl("reference"))
+            ctx.enter_context(attention.use_decode_impl("reference"))
+        with ctx:
+            cache = model.init_cache(B, 64, device=cuda)
+            before = counts()
+            out = model.apply(params, {"tokens": toks, "lengths": lens},
+                              mode="prefill", cache=cache)
+            logits = [model.logits_of(params, out["last_hidden"])]
+            got = [tuple(a - b for a, b in zip(counts(), before))]
+            for step in range(6):
+                before = counts()
+                nxt = toks[:, step:step + 1]
+                out = model.apply(params, {"tokens": nxt}, mode="decode",
+                                  cache=cache)
+                logits.append(model.logits_of(params, out["hidden"][:, 0]))
+                got.append(tuple(a - b for a, b in zip(counts(), before)))
+        return logits, got
+
+    logits, got = serve(False)
+    ref, ref_got = serve(True)
+    torch.cuda.synchronize()
+    assert got[0] == (n_rwkv, n_lru, n_local, 0)
+    assert all(g == (n_rwkv, 0, 0, n_local) for g in got[1:])
+    assert all(g == (0, 0, 0, 0) for g in ref_got)
+    for a, b in zip(logits, ref):
+        torch.testing.assert_close(a, b, **TOL[torch.float32])
 
 
 # ---------------------------------------------------------------------------

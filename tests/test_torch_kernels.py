@@ -203,3 +203,117 @@ def test_model_causal_attention_matches_jax(Sq, Skv, window, chunk, dtype):
     assert out.dtype == tq.dtype and out.shape == (B, Sq, H, hd)
     np.testing.assert_allclose(_np(out), _np(j_out), **TOL[dtype])
     assert flash_ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# K4: RG-LRU scan, plain version vs JAX ref and Pallas (interpret)
+# ---------------------------------------------------------------------------
+
+from repro.kernels.rglru_scan.kernel import rglru_scan_kernel  # noqa: E402
+from repro.kernels.rglru_scan.ref import rglru_scan_ref as j_rglru_ref  # noqa
+from repro.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel  # noqa: E402
+from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as j_rwkv_ref  # noqa
+from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
+
+
+def _decays(seed, shape, dtype):
+    """Decays in (0, 1), as the models make them, rounded to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal(shape) - 2.0))).astype(
+        np.float32)
+    return jnp.asarray(a).astype(JD[dtype]), torch.from_numpy(a).to(TD[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,W", [
+    (2, 24, 256),     # S and W multiples of the Pallas blocks below
+    (3, 13, 200),     # S and W padded by the Pallas kernel
+    (1, 1, 64)])      # a single step
+def test_rglru_plain_matches_jax(B, S, W, dtype):
+    """The plain version of K4 equals the JAX ``ref.py`` and the Pallas
+    kernel (interpret mode, blocks of 8 steps x 128 channels, so S and W
+    are padded in the second case) within the fp32 tolerance: the state
+    is fp32 whatever the inputs' type."""
+    ja, ta = _decays(B * S + W, (B, S, W), dtype)
+    (jb, jh0), (tb, th0) = _inputs(B + S + W, [(B, S, W), (B, W)], dtype)
+    jh0, th0 = jh0.astype(jnp.float32), th0.float()
+    hs, hT = rglru_scan_ref(ta, tb, th0)
+    assert hs.dtype == hT.dtype == torch.float32
+    assert hs.shape == (B, S, W) and hT.shape == (B, W)
+    j_hs, j_hT = j_rglru_ref(ja, jb, jh0)
+    np.testing.assert_allclose(_np(hs), _np(j_hs), **TOL["float32"])
+    np.testing.assert_allclose(_np(hT), _np(j_hT), **TOL["float32"])
+    p_hs, p_hT = rglru_scan_kernel(ja, jb, jh0, block_w=128, block_t=8,
+                                   interpret=True)
+    np.testing.assert_allclose(_np(hs), _np(p_hs), **TOL["float32"])
+    np.testing.assert_allclose(_np(hT), _np(p_hT), **TOL["float32"])
+    # the wrapper takes the plain version on the CPU and counts nothing
+    before = rglru_ops.LAUNCHES
+    w_hs, w_hT = rglru_ops.rglru_scan(ta, tb, th0)
+    assert torch.equal(w_hs, hs) and torch.equal(w_hT, hT)
+    assert rglru_ops.LAUNCHES == before
+    with pytest.raises(ValueError):
+        rglru_ops.rglru_scan(ta, tb, th0, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# K5: RWKV-6 wkv scan, plain version vs JAX ref and Pallas (interpret)
+# ---------------------------------------------------------------------------
+
+
+def _rwkv_inputs(seed, B, S, H, hd, dtype):
+    (jr, jk, jv, ju, js0), (tr, tk, tv, tu, ts0) = _inputs(
+        seed, [(B, S, H, hd)] * 3 + [(H, hd), (B, H, hd, hd)], dtype)
+    jw, tw = _decays(seed + 1, (B, S, H, hd), "float32")
+    ju, tu = ju.astype(jnp.float32) * 0.1, tu.float() * 0.1
+    js0, ts0 = js0.astype(jnp.float32), ts0.float()
+    return (jr, jk, jv, jw, ju, js0), (tr, tk, tv, tw, tu, ts0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 16, 2, 16),     # S a multiple of the Pallas time block below
+    (1, 13, 3, 32),     # S padded by the Pallas kernel
+    (2, 1, 2, 16)])     # a single (decode) step
+def test_rwkv6_plain_matches_jax(B, S, H, hd, dtype):
+    """The plain version of K5 equals the JAX ``ref.py`` and the Pallas
+    kernel (interpret mode, time blocks of 8) on r, k, v in ``dtype`` with
+    fp32 decays, bonus and state, within the fp32 tolerance."""
+    j_in, t_in = _rwkv_inputs(B * S * H + hd, B, S, H, hd, dtype)
+    o, sT = rwkv6_scan_ref(*t_in)
+    assert o.dtype == sT.dtype == torch.float32
+    assert o.shape == (B, S, H, hd) and sT.shape == (B, H, hd, hd)
+    j_o, j_sT = j_rwkv_ref(*j_in)
+    np.testing.assert_allclose(_np(o), _np(j_o), **TOL["float32"])
+    np.testing.assert_allclose(_np(sT), _np(j_sT), **TOL["float32"])
+    p_o, p_sT = rwkv6_scan_kernel(*j_in, block_t=8, interpret=True)
+    np.testing.assert_allclose(_np(o), _np(p_o), **TOL["float32"])
+    np.testing.assert_allclose(_np(sT), _np(p_sT), **TOL["float32"])
+    before = rwkv_ops.LAUNCHES
+    w_o, w_sT = rwkv_ops.rwkv6_scan(*t_in)
+    assert torch.equal(w_o, o) and torch.equal(w_sT, sT)
+    assert rwkv_ops.LAUNCHES == before
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv6_scan(*t_in, impl="pallas")
+
+
+def test_rwkv6_plain_state_chaining():
+    """Two calls over the halves, the second from the first's state, equal
+    one call over the whole sequence (as tests/test_kernels.py checks for
+    the JAX version); a step with decay 1 and k = 0 leaves the state
+    unchanged (the model's prefill padding)."""
+    B, S, H, hd = 2, 20, 2, 16
+    _, (r, k, v, w, u, s0) = _rwkv_inputs(31, B, S, H, hd, "float32")
+    o, sT = rwkv6_scan_ref(r, k, v, w, u, s0)
+    h = S // 2
+    o1, s1 = rwkv6_scan_ref(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u, s0)
+    o2, s2 = rwkv6_scan_ref(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u, s1)
+    np.testing.assert_allclose(_np(torch.cat([o1, o2], 1)), _np(o),
+                               **TOL["float32"])
+    np.testing.assert_allclose(_np(s2), _np(sT), **TOL["float32"])
+    pad_k, pad_w = torch.zeros_like(k[:, :3]), torch.ones_like(w[:, :3])
+    _, s3 = rwkv6_scan_ref(r[:, :3], pad_k, v[:, :3], pad_w, u, sT)
+    assert torch.equal(s3, sT)
