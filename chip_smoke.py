@@ -45,7 +45,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
+# dense, per type; "tf32": the tensor cores' TF32 product rate (K3)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
 # kernel-served vs plain-served limits at full width (bf16), a few times
 # the readings on the H100 (PERF.md, section 6): decode-step logits
@@ -1178,9 +1179,17 @@ def index_path(torch, eng, errs):
                       t)
 
 
-def topk_bound(Q, N, D, k):
+def topk_bounds(Q, N, D, k):
+    """K3's bound: q and c read once, vals and idx written once, against
+    the operations of the instruction it runs, three TF32 products of
+    2*Q*N*D operations each at the TF32 rate (3xTF32).  Beside it, as in
+    earlier runs, the same bytes against 2*Q*N*D fp32 FMA operations at
+    the fp32 rate."""
     nbytes = 4.0 * (Q * D + N * D) + 8.0 * Q * k  # q, c in; vals, idx out
-    return bound(nbytes, 2.0 * Q * N * D, "float32")
+    b_ms, b_by = bound(nbytes, 3 * 2.0 * Q * N * D, "tf32")
+    f_ms, f_by = bound(nbytes, 2.0 * Q * N * D, "float32")
+    return {"bound_ms": b_ms, "bound_by": b_by, "fp32_fma_bound_ms": f_ms,
+            "fp32_fma_bound_by": f_by}
 
 
 def time_topk(torch, topk_ops, what, q, c, k, iters=20, plain_rows=None):
@@ -1200,14 +1209,16 @@ def time_topk(torch, topk_ops, what, q, c, k, iters=20, plain_rows=None):
     plain_ms = cuda_time_ms(lambda: topk_ops.similarity_topk(
         qp, c, k, impl="reference"), max(iters // 4, 3), warmup=1)
     lib_ms = cuda_time_ms(lambda: torch.topk(q @ c.T, k), iters)
-    b_ms, b_by = topk_bound(Q, N, D, k)
+    b = topk_bounds(Q, N, D, k)
     cut = f" (plain on the first {qp.shape[0]} queries)" if plain_rows else ""
     print(f"time K3 {what} Q={Q} N={N} D={D} k={k} fp32: kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms{cut}, torch.topk(q@c.T) "
-          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); max|err| "
-          f"{err:.3g}, {flips} flips within margin")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+          f"{lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}"
+          f", 3xTF32), fp32 FMA bound {b['fp32_fma_bound_ms']:.5f} ms "
+          f"({b['fp32_fma_bound_by']}); max|err| {err:.3g}, {flips} flips "
+          "within margin")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b,
+            "max_abs_err": err}
 
 
 def topk_full_shapes(torch, topk_ops, dev):

@@ -14,19 +14,23 @@
 // 150 flops per byte it must move (q, k, v read once, the output written
 // once), below the ~295 flop/byte at which the card's bf16 tensor cores
 // become the limit, so the bound is bytes; past ~750 tokens it turns into
-// operations.  The design keeps the [Sq, Skv] scores out of device memory
-// (one online softmax per q row), never loads a kv tile outside the causal /
-// window band (about half the work of a dense pass), and reads q, k, v and
-// writes the output in the model's [B, S, heads, hd] layout through strides
-// (no transpose passes).  Each (q tile, q head) block re-reads its kv head's
-// tiles, mostly from L2; one block per GQA group, wgmma and TMA loads are
-// later work.  At hd = 256 (recurrentgemma's local attention: 16 q heads
-// on one kv head, window 2048) the same holds: at S = 384 about 120
-// flops per byte, bound by bytes.
+// operations.  At hd = 256 (recurrentgemma's local attention: 16 q heads
+// on one kv head, window 2048) the same holds: at S = 384 about 120 flops
+// per byte.  Both designs keep the [Sq, Skv] scores out of device memory
+// (one online softmax per q row), never load a kv tile outside the causal
+// / window band, and read q, k, v and write the output in the model's
+// [B, S, heads, hd] layout through strides (no transpose passes).  At
+// these short sequences a unit of work is a few kv tiles, so what costs
+// is latency: a block's start, its first loads, and the chain S -> softmax
+// -> P V of each tile.  The bf16 design answers with persistent blocks
+// whose producer loads the next unit while the consumers finish this
+// one, and with one K/V load per GQA group instead of one per q head (G
+// = 4 for proxy-8b, 16 for recurrentgemma).
 //
-// Two variants share that algorithm:
-//   bf16 (the served model): products on the tensor cores with mma.sync
-//     m16n8k16 and fp32 accumulation; see flash_attention_mma_kernel.
+// Two variants:
+//   bf16 (the served model): warp-specialized, TMA-fed, wgmma; see
+//     flash_attention_wgmma_kernel.  TMA needs 16-byte strides and a
+//     16-byte aligned base (the wrapper raises otherwise).
 //   fp32 (tests and references): fp32 FMAs from shared-memory tiles, exact
 //     to fp32 rounding.  One block of 128 threads per (32-row q tile, q
 //     head, batch row); thread t owns q row t / 4, score columns
@@ -37,10 +41,12 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
+
 
 namespace {
 
-using repro::NEG_INF;
+using namespace repro;
 
 constexpr int BQ = 32;     // q rows per block
 constexpr int BK = 32;     // kv rows per tile
@@ -179,21 +185,173 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 }
 
 // --------------------------------------------------------------------------
-// bf16: the same algorithm on the tensor cores (mma.sync m16n8k16, fp32
-// accumulate).  One block of 4 warps per (64-row q tile, q head, batch row);
-// warp w owns q rows 16w .. 16w+15.  S = Q K^T for a 64-key tile stays in
-// registers, the online softmax runs on those registers (a row's values sit
-// in the 4 lanes of one quad), and P is repacked in registers as the A
-// operand of P V, so scores never touch shared memory.
+// bf16: work units of (128-row q tile, kv head, batch row).  A unit's
+// rows are (q position, q head of the group) pairs, head fastest: row r
+// is position q0 + r / G of head kv * G + r % G, so one K/V tile feeds
+// all G heads.  The kernel is persistent: one block per SM walks units
+// gridDim.x apart, the widest causal bands first.  Its last warp is the
+// producer: one thread loads each unit's Q tile and keeps a ring of
+// STAGES K/V tiles full with TMA, running ahead across units; each stage
+// has a "full" mbarrier (the copies' bytes landed) and an "empty" one
+// (the consumers are done with it), and the Q tile has the same pair.
+// Warpgroups 0 and 1 each own 64 rows of a unit: S = Q K^T by wgmma
+// m64n64k16 with Q and K from shared memory, the online softmax on the S
+// registers, then O += P V by wgmma m64nHDk16 with P from registers and V
+// from shared memory.  Every tile lands with 128-byte swizzle, in
+// 64-column chunks of 128-byte rows, the layout wgmma's descriptors read.
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int BKV = 64;          // keys of a K/V tile
+constexpr int CHUNK = 64;        // columns of a swizzled 128-byte row
+
+// NC consumer warpgroups of 64 rows each and one producer warp: two at
+// HD <= 128; one at HD = 256, whose O accumulator alone takes 128
+// registers a thread.  A block of one warpgroup and a warp (160 threads)
+// may use 255 registers a thread; with two (288 threads, which the card
+// allocates as 384) only 168, and the HD = 256 consumer would spill.
+template <int HD>
+struct FlashShape {
+  static constexpr int NC = HD == 256 ? 1 : 2;
+  static constexpr int BM = 64 * NC;                 // rows of a unit
+  static constexpr int THREADS = NC * WG + 32;
+  static constexpr int CHUNKS = HD / CHUNK;
+  static constexpr int STAGES = HD == 256 ? 2 : (HD == 128 ? 3 : 4);
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;       // K or V of a tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_BYTES = 8 * (2 * STAGES + 2);
+  // + 1024: the dynamic base is aligned up to the swizzle atom
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES +
+                              BAR_BYTES;
+};
+
+// d[32] (+)= A (shared, K-major) * B (shared, K-major), m64n64k16
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] += A (registers) * B (shared, MN-major), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (registers) * B (shared, MN-major), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[128] += A (registers) * B (shared, MN-major), m64n256k16
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HD == 256) wgmma_rs_n256(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -201,209 +359,267 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-constexpr int MQ = 64;      // q rows per block (16 per warp)
-constexpr int MK = 64;      // kv rows per tile
-
 template <int HD>
-constexpr int mma_smem_bytes() {
-  return 3 * MQ * (HD + 8) * 2;   // sQ, sK, sV, rows padded by 16 bytes
-}
+__global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
+    flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    __nv_bfloat16* __restrict__ out, int B, int KV, int G, int Sq, int Skv,
+    long long o_sb, long long o_ss, long long o_sh, int causal, int window,
+    float scale) {
+  using F = FlashShape<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;                              // Q: CHUNKS x 16 KB
+  const uint32_t skv = base + F::Q_BYTES;                // stage s: K then V
+  const uint32_t bars = skv + F::STAGES * F::STAGE_BYTES;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto full_bar = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty_bar = [&](int s) { return bars + 8 * (2 + F::STAGES + s); };
 
-// Copy `rows` rows of HD bf16 (row stride `ld` elements in global memory)
-// into shared memory rows of stride HD + 8, zero past `valid` rows.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int rows, int valid,
-                                          int tid) {
-  constexpr int CPR = HD / 8;    // 16-byte chunks per row
-  for (int i = tid; i < rows * CPR; i += NT) {
-    const int row = i / CPR, ch = i % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < valid)
-      val = *reinterpret_cast<const uint4*>(src + row * ld + ch * 8);
-    *reinterpret_cast<uint4*>(dst + row * (HD + 8) + ch * 8) = val;
-  }
-}
-
-// The A fragment of Q for k-step ks (rows r0 and r0 + 8) from sQ.
-template <int HD>
-__device__ __forceinline__ void q_frag(const __nv_bfloat16* sQ, int r0,
-                                       int ks, int t, uint32_t (&a)[4]) {
-  constexpr int LD = HD + 8;
-  const __nv_bfloat16* p = sQ + r0 * LD + ks * 16 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NT) flash_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int H, int KV, int Sq, int Skv, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, float scale) {
-  constexpr int LD = HD + 8;       // shared row stride: conflict-free frags
-  constexpr int KS = HD / 16;      // k-steps of Q K^T
-  constexpr int NS = MK / 8;       // 8-key column tiles of S
-  constexpr int NO = HD / 8;       // 8-dim column tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + MQ * LD;
-  __nv_bfloat16* sV = sK + MK * LD;
-
-  const int q0 = blockIdx.x * MQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int c = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  constexpr int BM = F::BM;
+  const int tp = BM / G;                 // q positions of a unit
+  const int n_qt = (Sq + tp - 1) / tp;
+  const int units = n_qt * KV * B;
   const int q_off = Skv - Sq;
+  // unit u: q tile n_qt - 1 - u / (KV B) (the widest causal bands first),
+  // kv head u % KV, batch row (u / KV) % B; the kv tiles its band sees
+  struct Unit {
+    int q0, kvh, b, k_begin, n_tiles;
+  };
+  auto unit = [&](int u) {
+    Unit w;
+    w.q0 = (n_qt - 1 - u / (KV * B)) * tp;
+    w.kvh = u % KV;
+    w.b = (u / KV) % B;
+    const int qpos_lo = w.q0 + q_off;
+    const int qpos_hi = min(w.q0 + tp, Sq) - 1 + q_off;
+    int k_end = Skv;
+    if (causal) k_end = min(k_end, qpos_hi + 1);
+    int k_begin = 0;
+    if (window > 0) k_begin = max(0, qpos_lo - window + 1);
+    w.k_begin = (k_begin / BKV) * BKV;
+    w.n_tiles = (k_end - w.k_begin + BKV - 1) / BKV;
+    return w;
+  };
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + c * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + c * v_sh;
-
-  load_tile<HD>(sQ, qb + q0 * q_ss, q_ss, MQ, Sq - q0, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, F::NC * WG);
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), F::NC * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int r0 = warp * 16 + g;    // this thread's rows: r0 and r0 + 8
-  // Q's A fragments: held in registers up to HD = 128; at HD = 256 they
-  // would take 64 registers beside the 128 of O, so they are read from
-  // sQ (which stays resident) at each use instead.
-  constexpr bool QREG = HD <= 128;
-  uint32_t qa[QREG ? KS : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) q_frag<HD>(sQ, r0, ks, t, qa[ks]);
+
+  if (threadIdx.x >= F::NC * WG) {
+    // ---- producer: one thread issues every copy ----
+    if (threadIdx.x != F::NC * WG) return;
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    int it = 0, q_round = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++q_round) {
+      const Unit w = unit(u);
+      // the consumers' last S of the previous unit has read Q
+      if (q_round > 0) mbar_wait(q_empty, (q_round - 1) & 1);
+      mbar_expect_tx(q_full, F::Q_BYTES);
+      for (int c = 0; c < F::CHUNKS; ++c)
+        tma_load_4d(sq + c * BM * 128, &q_map, q_full, c * CHUNK,
+                    w.kvh * G, w.q0, w.b);
+      for (int i = 0; i < w.n_tiles; ++i, ++it) {
+        const int s = it % F::STAGES, round = it / F::STAGES;
+        if (round > 0) mbar_wait(empty_bar(s), (round - 1) & 1);
+        const uint32_t k_dst = skv + s * F::STAGE_BYTES;
+        const uint32_t v_dst = k_dst + F::KV_BYTES;
+        const int kt = w.k_begin + i * BKV;
+        mbar_expect_tx(full_bar(s), F::STAGE_BYTES);
+        for (int c = 0; c < F::CHUNKS; ++c) {
+          tma_load_4d(k_dst + c * BKV * 128, &k_map, full_bar(s), c * CHUNK,
+                      w.kvh, kt, w.b);
+          tma_load_4d(v_dst + c * BKV * 128, &v_map, full_bar(s), c * CHUNK,
+                      w.kvh, kt, w.b);
+        }
+      }
+    }
+    return;
   }
 
-  const int qpos_lo = q0 + q_off;
-  const int qpos_hi = min(q0 + MQ, Sq) - 1 + q_off;
-  int k_end = Skv;
-  if (causal) k_end = min(k_end, qpos_hi + 1);
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, qpos_lo - window + 1);
-  k_begin = (k_begin / MK) * MK;
-
-  const int qp[2] = {q0 + r0 + q_off, q0 + r0 + 8 + q_off};
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[NO][4];
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  const int wg = threadIdx.x / WG;
+  const int tw = threadIdx.x % WG, warp = tw / 32, lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = wg * 64 + warp * 16 + g;      // rows r0 and r0 + 8
+  int it = 0, q_round = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++q_round) {
+    const Unit w = unit(u);
+    const int pos[2] = {w.q0 + r0 / G, w.q0 + (r0 + 8) / G};
+    const int qp[2] = {pos[0] + q_off, pos[1] + q_off};
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[HD / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    mbar_wait(q_full, q_round & 1);
+    for (int i = 0; i < w.n_tiles; ++i, ++it) {
+      const int s = it % F::STAGES;
+      mbar_wait(full_bar(s), (it / F::STAGES) & 1);
+      const uint32_t k_src = skv + s * F::STAGE_BYTES;
+      const uint32_t v_src = k_src + F::KV_BYTES;
+      const int kt = w.k_begin + i * BKV;
 
-  for (int kt = k_begin; kt < k_end; kt += MK) {
-    __syncthreads();   // previous tile fully consumed
-    load_tile<HD>(sK, kb + kt * k_ss, k_ss, MK, Skv - kt, tid);
-    load_tile<HD>(sV, vb + kt * v_ss, v_ss, MK, Skv - kt, tid);
-    __syncthreads();
+      // S = Q K^T: 16 columns (32 bytes) a step within each 64-column
+      // chunk; 8-row groups 1024 bytes apart
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        const uint64_t da = sw128_desc(
+            sq + (ks / 4) * BM * 128 + wg * 64 * 128 + col, 16, 1024);
+        const uint64_t db =
+            sw128_desc(k_src + (ks / 4) * BKV * 128 + col, 16, 1024);
+        wgmma_ss_n64(sc, da, db, ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      if (i == w.n_tiles - 1) mbar_arrive(q_empty);   // done with Q
 
-    // S = Q K^T (fp32 accumulators, row r0: s[j][0..1], row r0+8: [2..3])
-    float s[NS][4];
+      // mask, then the online softmax of the thread's two rows (a row's
+      // 64 scores lie in the 4 lanes of a quad)
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* p = sK + (j * 8 + g) * LD + ks * 16 + 2 * t;
-        uint32_t a[4];
-        if constexpr (QREG) {
-          a[0] = qa[ks][0]; a[1] = qa[ks][1];
-          a[2] = qa[ks][2]; a[3] = qa[ks][3];
-        } else {
-          q_frag<HD>(sQ, r0, ks, t, a);
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kt + j * 8 + 2 * t + (e & 1);
+          const int r = e >> 1;
+          bool ok = kp < Skv;
+          if (causal) ok = ok && kp <= qp[r];
+          if (window > 0) ok = ok && kp > qp[r] - window;
+          float& x = sc[4 * j + e];
+          x = ok ? x * scale : NEG_INF;
+          mx[r] = fmaxf(mx[r], x);
         }
-        mma_16816(s[j], a, *reinterpret_cast<const uint32_t*>(p),
-                  *reinterpret_cast<const uint32_t*>(p + 8));
       }
-    }
-
-    // mask, then the online softmax of each of the thread's two rows
-    float mx[2] = {NEG_INF, NEG_INF};
+      float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = kt + j * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        bool ok = kp < Skv;
-        if (causal) ok = ok && kp <= qp[r];
-        if (window > 0) ok = ok && kp > qp[r] - window;
-        s[j][e] = ok ? s[j][e] * scale : NEG_INF;
-        mx[r] = fmaxf(mx[r], s[j][e]);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
       }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
+      for (int j = 0; j < 32; ++j) {
+        const int r = (j >> 1) & 1;
         // masked scores hold NEG_INF exactly and contribute exactly 0
-        const float p = s[j][e] > 0.5f * NEG_INF ? expf(s[j][e] - m[r]) : 0.f;
-        s[j][e] = p;
+        const float p = sc[j] > 0.5f * NEG_INF ? expf(sc[j] - m[r]) : 0.f;
+        sc[j] = p;
         sum[r] += p;
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+      // O += P V: P's accumulators of key blocks 2u, 2u+1 are the A
+      // operand of step u; V (keys x HD, HD contiguous) is MN-major: 8-key
+      // groups 1024 bytes apart, 64-column chunks BKV * 128 bytes apart
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int u4 = 0; u4 < 4; ++u4) {
+        pa[u4][0] = pack_f32(sc[8 * u4 + 0], sc[8 * u4 + 1]);
+        pa[u4][1] = pack_f32(sc[8 * u4 + 2], sc[8 * u4 + 3]);
+        pa[u4][2] = pack_f32(sc[8 * u4 + 4], sc[8 * u4 + 5]);
+        pa[u4][3] = pack_f32(sc[8 * u4 + 6], sc[8 * u4 + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int u4 = 0; u4 < 4; ++u4)
+        wgmma_pv<HD>(o, pa[u4],
+                     sw128_desc(v_src + u4 * 16 * 128, BKV * 128, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(empty_bar(s));
     }
+
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
+      const int row = r0 + 8 * r;
+      if (pos[r] >= Sq) continue;
+      const float lsafe = (l[r] == 0.f) ? 1.f : l[r];
+      __nv_bfloat16* orow = out + w.b * o_sb + pos[r] * o_ss +
+                            (w.kvh * G + row % G) * o_sh + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of key tiles 2u, 2u+1 are the A operand
-#pragma unroll
-    for (int u = 0; u < MK / 16; ++u) {
-      const uint32_t pa[4] = {pack_f32(s[2 * u][0], s[2 * u][1]),
-                              pack_f32(s[2 * u][2], s[2 * u][3]),
-                              pack_f32(s[2 * u + 1][0], s[2 * u + 1][1]),
-                              pack_f32(s[2 * u + 1][2], s[2 * u + 1][3])};
-      const __nv_bfloat16* vp = sV + (u * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* p = vp + n * 8;
-        mma_16816(o[n], pa, pack_bf16(p[0], p[LD]),
-                  pack_bf16(p[8 * LD], p[9 * LD]));
-      }
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(o[4 * n + 2 * r] / lsafe,
+                                  o[4 * n + 2 * r + 1] / lsafe);
     }
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r0 + 8 * r;
-    if (qi >= Sq) continue;
-    const float lsafe = (l[r] == 0.f) ? 1.f : l[r];
-    __nv_bfloat16* orow = out + b * o_sb + qi * o_ss + h * o_sh + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * r] / lsafe, o[n][2 * r + 1] / lsafe);
-  }
+// A bf16 [B, S, heads, HD] tensor read through its element strides (sb,
+// ss, sh; the last dim contiguous) as boxes of (64 columns, box_h heads,
+// box_s positions, 1 row), 128-byte swizzled; positions past S read as 0.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int hd, long long sb, long long ss, long long sh, int box_h,
+              int box_s) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {CHUNK, static_cast<cuuint32_t>(box_h),
+                             static_cast<cuuint32_t>(box_s), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int H, int KV, int Sq, int Skv,
+                        const long long* st, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  constexpr int BM = FlashShape<HD>::BM;
+  if (G > BM || BM % G != 0) return cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, B, Sq, H, HD, st[0], st[1], st[2], G, BM / G) ||
+      !make_map(&k_map, k, B, Skv, KV, HD, st[3], st[4], st[5], 1, BKV) ||
+      !make_map(&v_map, v, B, Skv, KV, HD, st[6], st[7], st[8], 1, BKV))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = FlashShape<HD>::SMEM;
+  auto kern = flash_attention_wgmma_kernel<HD>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kern), bytes);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int units = (Sq + BM / G - 1) / (BM / G) * KV * B;
+  kern<<<min(units, sms), FlashShape<HD>::THREADS, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), B, KV, G, Sq,
+      Skv, st[9], st[10], st[11], causal, window, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -412,22 +628,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const long long* st, int causal, int window, float scale,
                    cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int bytes = mma_smem_bytes<HD>();
-    auto kern = flash_attention_mma_kernel<HD>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Sq + MQ - 1) / MQ, H, B);
-    kern<<<grid, NT, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Skv,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-        st[10], st[11], causal, window, scale);
+    return launch_bf16<HD>(q, k, v, out, B, H, KV, Sq, Skv, st, causal,
+                           window, scale, stream);
   } else {
     constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
     auto kern = flash_attention_kernel<T, HD>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(kern), bytes);
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, NT, bytes, stream>>>(
@@ -435,8 +641,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Skv,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
         st[10], st[11], causal, window, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -23,6 +23,7 @@ LIB = build.CudaLibrary("flash_attention.cu", {
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 })
 HEAD_DIMS = (64, 128, 256)
+GROUP_ROWS = 64      # bf16 kernel: its units hold whole GQA groups in 64s
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
@@ -40,6 +41,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if hd not in HEAD_DIMS or H % KV:
         raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS} "
                          f"and H divisible by KV; got hd={hd}, H={H}, KV={KV}")
+    if q.dtype == torch.bfloat16 and GROUP_ROWS % (H // KV):
+        raise ValueError(f"the bf16 kernel's rows come in {GROUP_ROWS}s of "
+                         f"whole GQA groups: H / KV = {H // KV} must divide "
+                         f"{GROUP_ROWS}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k/v shapes {tuple(k.shape)} / {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")

@@ -9,6 +9,7 @@ device; only comparisons of the kernel against it pass that.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,7 +19,7 @@ from repro_torch.kernels.similarity_topk.ref import (l2_normalize,
 
 _FUSED_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
     ctypes.c_void_p] * 4
-_LARGE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+_LARGE_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
 LIB = build.CudaLibrary("similarity_topk.cu", {
     "repro_similarity_topk": _FUSED_ARGS,
@@ -26,11 +27,45 @@ LIB = build.CudaLibrary("similarity_topk.cu", {
 })
 BLOCK_N = 128        # corpus rows per tile (csrc/similarity_topk.cu)
 K_FUSED = 128        # largest k the fused path keeps in registers
-BLOCKS_PER_SM = 2    # fused path: corpus splits fill about this many
+K_WIDE = 32          # largest k of the 64- and 128-query blocks
+WIDE_D = 64          # largest D of the 128-query block (queries resident)
+BLOCKS_PER_SM = 2    # 16- and 64-query blocks an SM holds
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
 LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _block(device, Q: int, n_tiles: int, D: int, k: int, aligned: bool):
+    """``(block_q, slots)``: queries a block and blocks the card holds.
+    Wider blocks read the corpus fewer times but pay only where their
+    blocks fill the card; small searches take 16 queries a block (more
+    blocks, shorter selections).  128 (one block an SM, products on
+    wgmma) needs D <= 64, D % 4 == 0 and a 16-byte aligned corpus; 64
+    (two an SM, mma.sync) takes any D."""
+    sms = _sm_count(device)
+    if Q > 16 and k <= K_WIDE:
+        if (D <= WIDE_D and D % 4 == 0 and aligned
+                and -(-Q // 128) * n_tiles >= sms):
+            return 128, sms
+        if -(-Q // 64) * n_tiles >= BLOCKS_PER_SM * sms:
+            return 64, BLOCKS_PER_SM * sms
+    return 16, BLOCKS_PER_SM * sms
+
+
+def _splits(slots: int, q_tiles: int, n_tiles: int):
+    """``(tiles_per_split, splits)``: cut the corpus's ``n_tiles`` 128-row
+    tiles into runs so that q_tiles * splits blocks fill one wave of the
+    card's ``slots`` blocks, and never more (a second, partial wave would
+    take as long as the first)."""
+    splits = max(1, min(n_tiles, slots // q_tiles))
+    per_split = -(-n_tiles // splits)
+    return per_split, -(-n_tiles // per_split)
 
 
 def similarity_topk_cuda(q: torch.Tensor, c: torch.Tensor, k: int):
@@ -55,15 +90,12 @@ def similarity_topk_cuda(q: torch.Tensor, c: torch.Tensor, k: int):
     idx = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0 or k == 0:
         return vals, idx
-    block_q = 16 if Q <= 16 else 32
+    n_tiles = max(1, -(-N // BLOCK_N))
+    block_q, slots = _block(q.device, Q, n_tiles, D, k,
+                            c.data_ptr() % 16 == 0)
+    per_split, splits = _splits(slots, -(-Q // block_q), n_tiles)
     stream = build.stream_ptr(q.device)
     if k <= K_FUSED:
-        q_tiles = -(-Q // block_q)
-        n_tiles = max(1, -(-N // BLOCK_N))
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = max(1, min(n_tiles, -(-BLOCKS_PER_SM * sms // q_tiles)))
-        per_split = -(-n_tiles // splits)
-        splits = -(-n_tiles // per_split)
         part = torch.empty((Q, splits, k), dtype=torch.int64,
                            device=q.device)
         err = LIB.load().repro_similarity_topk(
@@ -74,8 +106,9 @@ def similarity_topk_cuda(q: torch.Tensor, c: torch.Tensor, k: int):
         keys = torch.empty((Q, N), dtype=torch.int64, device=q.device)
         buf = torch.empty((Q, p2), dtype=torch.int64, device=q.device)
         err = LIB.load().repro_similarity_topk_large(
-            q.data_ptr(), c.data_ptr(), Q, N, D, k, block_q, keys.data_ptr(),
-            buf.data_ptr(), p2, vals.data_ptr(), idx.data_ptr(), stream)
+            q.data_ptr(), c.data_ptr(), Q, N, D, k, block_q, per_split,
+            splits, keys.data_ptr(), buf.data_ptr(), p2, vals.data_ptr(),
+            idx.data_ptr(), stream)
     build.check(err, "similarity_topk")
     LAUNCHES += 1
     return vals, idx

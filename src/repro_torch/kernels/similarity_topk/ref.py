@@ -55,3 +55,34 @@ def topk_flips(idx: torch.Tensor, ref_vals: torch.Tensor,
     got, want = idx.cpu(), ref_idx[:, :k].cpu()
     return [(r, p, int(got[r, p]), int(want[r, p]), float(gaps[r, p]))
             for r, p in (got != want).nonzero().tolist()]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on the
+    10 explicit mantissa bits, ties away from zero, the 13 low bits zero.
+    Adding half a TF32 unit to the magnitude bits and cutting rounds half
+    away from zero in sign-magnitude.  Inf and NaN pass unchanged."""
+    x = x.float().contiguous()
+    r = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)`` as K3's kernel splits each fp32 operand: ``hi`` is
+    ``x`` rounded to TF32 (``tf32_round``), ``lo`` the remainder ``x - hi``
+    (exact in fp32) as the tensor core reads it, cut to TF32 (its 13 low
+    bits ignored, which truncates toward zero)."""
+    hi = tf32_round(x)
+    lo = (x.float() - hi).contiguous()
+    return hi, (lo.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def scores_3xtf32(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """[Q, N] scores as K3 computes them on the tensor cores: the three
+    TF32 products lo(q) hi(c), hi(q) lo(c), hi(q) hi(c), summed in fp32
+    (lo lo is dropped).  Products of two TF32 values are exact in fp32,
+    so this differs from the kernel only in summation order.  A model of
+    the kernel's arithmetic for the tests; no search path calls it."""
+    qh, ql = split_tf32(q)
+    ch, cl = split_tf32(c)
+    return ql @ ch.T + qh @ cl.T + qh @ ch.T

@@ -173,6 +173,58 @@ def test_flash_kernel_hd256(cuda, dtype, Sq, window):
     assert torch.equal(flash_ops.flash_attention(q, k, v, window=window), out)
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("Sq,Skv,window", [(70, 70, 0), (45, 200, 48),
+                                           (130, 130, 48)])
+def test_flash_kernel_gqa_groups(cuda, hd, G, Sq, Skv, window):
+    """The bf16 kernel's units hold whole GQA groups (rows are (position,
+    head) pairs): every head dim at group sizes 1, 4 and 16, Sq below Skv,
+    Sq not a multiple of a unit's positions, causal and window bands; a
+    second launch gives the same bits."""
+    B, KV = 2, 2
+    H = KV * G
+    q, k, v = _randn(24, [(B, Sq, H, hd), (B, Skv, KV, hd),
+                          (B, Skv, KV, hd)], torch.bfloat16, cuda)
+    before = flash_ops.LAUNCHES
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    ref = flash_ops.flash_attention(q, k, v, window=window, impl="reference")
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(flash_ops.flash_attention(q, k, v, window=window),
+                       out)
+
+
+@pytest.mark.parametrize("hd,G,window", [(128, 4, 0), (256, 16, 2048)])
+def test_flash_kernel_reads_fused_qkv(cuda, hd, G, window):
+    """q, k and v as views of one fused [B, S, H + 2 KV, hd] projection:
+    the tensor maps take their strides."""
+    B, S, KV = 2, 77, 1
+    H = KV * G
+    qkv, = _randn(25, [(B, S, H + 2 * KV, hd)], torch.bfloat16, cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    ref = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), window=window,
+                                    impl="reference")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_flash_kernel_rejects_what_tma_cannot_read(cuda):
+    """A GQA group that does not divide the kernel's 64-row groups, and a
+    row stride that is not a multiple of 16 bytes, raise (no fallback)."""
+    q, k, v = _randn(26, [(2, 16, 6, 64), (2, 16, 2, 64), (2, 16, 2, 64)],
+                     torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, k, v)           # G = 3
+    wide, = _randn(27, [(2, 16, 4, 65)], torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(wide[..., :64], k, v)   # 130-byte rows
+
+
 # ---------------------------------------------------------------------------
 # K4: RG-LRU scan; K5: RWKV-6 scan
 # ---------------------------------------------------------------------------
@@ -375,6 +427,59 @@ def test_topk_kernel_sign_vector_ties(cuda):
         rv, ri = topk_ops.similarity_topk(q, c, k, impl="reference")
         assert torch.equal(idx, ri), k
         assert torch.equal(vals, rv), k
+
+
+@pytest.mark.parametrize("Q,N,D,k", [
+    (1, 100, 3, 1),               # N below one 128-row tile, D = 3
+    (16, 1000, 100, 100),         # N not a multiple of the tile, D = 100
+    (17, 3000, 1024, 128),        # Q past one 16-query block, D = 1024
+    (1024, 5000, 64, 8),          # the 128-query block, on wgmma
+    (300, 60000, 48, 32),         # 128-query block, columns past D zero
+    (1024, 20000, 16, 4),         # 128-query block, one 32-column chunk
+    (1024, 3000, 100, 32),        # the 64-query block (D > 64), 4-byte copies
+    (16, 300, 1024, 129),         # large path through the same tile
+    (17, 129, 3, 129),            # large path, k = N
+    (3, 50, 100, 100),            # k > N on the fused path
+])
+def test_topk_kernel_tensor_core_shapes(cuda, Q, N, D, k):
+    """The 3xTF32 tiles and their rings at the edges of their shapes:
+    ragged corpus tiles and 32-deep chunks, the 16-, 64- and 128-query
+    blocks, both copy widths, both selection paths."""
+    q, c = _randn(22, [(Q, D), (N, D)], torch.float32, cuda)
+    vals, idx = _check_topk(q, c, k)
+    if k > N:
+        assert (idx[:, N:] == -1).all() and torch.isneginf(vals[:, N:]).all()
+
+
+@pytest.mark.parametrize("Q,D,k", [(17, 100, 8), (1024, 64, 8),
+                                   (16, 1024, 100), (5, 64, 200)])
+def test_topk_kernel_duplicate_rows_tie_to_lower_index(cuda, Q, D, k):
+    """Copies of a corpus row, spread over tiles and corpus splits, get
+    bit-identical scores (a score depends only on its two rows), so the
+    lower index always comes first."""
+    rng = np.random.default_rng(23)
+    N = 20_000
+    c = rng.standard_normal((N, D)).astype(np.float32)
+    src = rng.choice(N, size=Q, replace=False)
+    for j, s in enumerate(src):                # three copies of each source
+        for dst in (5003 * j + 7919, 13001 + 97 * j):
+            c[dst % N] = c[s]
+    q = c[src] + 0.05 * rng.standard_normal((Q, D)).astype(np.float32)
+    q, c = (torch.from_numpy(x).to(cuda) for x in (q, c))
+    vals, idx = _check_topk(q, c, k)
+    rows = c.cpu().numpy()
+    ids, got = idx.cpu().numpy(), vals.cpu().numpy()
+    copies = 0
+    for r in range(Q):
+        seen = {}                              # row bytes -> (id, value)
+        for i, v in zip(ids[r], got[r]):
+            if i < 0:
+                continue
+            first = seen.setdefault(rows[i].tobytes(), (i, v))
+            if first[0] != i:
+                copies += 1
+                assert first[0] < i and first[1] == v, (r, first, i, v)
+    assert copies >= Q                 # the copies did reach the top k
 
 
 def test_index_launches_k3_per_search(cuda):
