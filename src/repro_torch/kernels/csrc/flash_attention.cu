@@ -30,7 +30,8 @@
 // Two variants:
 //   bf16 (the served model): warp-specialized, TMA-fed, wgmma; see
 //     flash_attention_wgmma_kernel.  TMA needs 16-byte strides and a
-//     16-byte aligned base (the wrapper raises otherwise).
+//     16-byte aligned base, and a unit holds at most BM q heads a kv head;
+//     the entry point returns ERR_UNSUPPORTED otherwise.
 //   fp32 (tests and references): fp32 FMAs from shared-memory tiles, exact
 //     to fp32 rounding.  One block of 128 threads per (32-row q tile, q
 //     head, batch row); thread t owns q row t / 4, score columns
@@ -38,6 +39,8 @@
 // In both, a row's softmax statistics live in the 4 lanes of one quad and
 // combine by 2-step shuffles in a fixed order (no atomics: results repeat
 // bit for bit).
+#include <string.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -185,15 +188,19 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 }
 
 // --------------------------------------------------------------------------
-// bf16: work units of (128-row q tile, kv head, batch row).  A unit's
-// rows are (q position, q head of the group) pairs, head fastest: row r
-// is position q0 + r / G of head kv * G + r % G, so one K/V tile feeds
-// all G heads.  The kernel is persistent: one block per SM walks units
-// gridDim.x apart, the widest causal bands first.  Its last warp is the
-// producer: one thread loads each unit's Q tile and keeps a ring of
-// STAGES K/V tiles full with TMA, running ahead across units; each stage
-// has a "full" mbarrier (the copies' bytes landed) and an "empty" one
-// (the consumers are done with it), and the Q tile has the same pair.
+// bf16: work units of (q tile, kv head, batch row).  A unit's rows are
+// (q position, q head of the group) pairs, head fastest: row r is
+// position q0 + r / G of head kv * G + r % G, so one K/V tile feeds all G
+// heads.  A unit holds floor(BM / G) positions, G * floor(BM / G) rows;
+// where G does not divide BM, the last rows of the Q tile are left as
+// they are and their outputs are not written (a row of a wgmma product
+// depends on its own row of A only).  The kernel is persistent: one
+// block per SM walks units gridDim.x apart, the widest causal bands
+// first.  Its last warp is the producer: one thread loads each unit's Q
+// tile and keeps a ring of STAGES K/V tiles full with TMA, running ahead
+// across units; each stage has a "full" mbarrier (the copies' bytes
+// landed) and an "empty" one (the consumers are done with it), and the Q
+// tile has the same pair.
 // Warpgroups 0 and 1 each own 64 rows of a unit: S = Q K^T by wgmma
 // m64n64k16 with Q and K from shared memory, the online softmax on the S
 // registers, then O += P V by wgmma m64nHDk16 with P from registers and V
@@ -202,6 +209,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 // --------------------------------------------------------------------------
 
 constexpr int WG = 128;          // threads of a warpgroup
+// returned (not a cudaError_t) for inputs the bf16 kernel cannot take
+constexpr int ERR_UNSUPPORTED = -1;
 constexpr int BKV = 64;          // keys of a K/V tile
 constexpr int CHUNK = 64;        // columns of a swizzled 128-byte row
 
@@ -380,6 +389,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
 
   constexpr int BM = F::BM;
   const int tp = BM / G;                 // q positions of a unit
+  const int rows = tp * G;               // its rows: G <= BM
   const int n_qt = (Sq + tp - 1) / tp;
   const int units = n_qt * KV * B;
   const int q_off = Skv - Sq;
@@ -426,7 +436,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
       const Unit w = unit(u);
       // the consumers' last S of the previous unit has read Q
       if (q_round > 0) mbar_wait(q_empty, (q_round - 1) & 1);
-      mbar_expect_tx(q_full, F::Q_BYTES);
+      mbar_expect_tx(q_full, rows * HD * 2);
       for (int c = 0; c < F::CHUNKS; ++c)
         tma_load_4d(sq + c * BM * 128, &q_map, q_full, c * CHUNK,
                     w.kvh * G, w.q0, w.b);
@@ -556,7 +566,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
-      if (pos[r] >= Sq) continue;
+      if (row >= rows || pos[r] >= Sq) continue;
       const float lsafe = (l[r] == 0.f) ? 1.f : l[r];
       __nv_bfloat16* orow = out + w.b * o_sb + pos[r] * o_ss +
                             (w.kvh * G + row % G) * o_sh + 2 * t;
@@ -572,9 +582,29 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
 // A bf16 [B, S, heads, HD] tensor read through its element strides (sb,
 // ss, sh; the last dim contiguous) as boxes of (64 columns, box_h heads,
 // box_s positions, 1 row), 128-byte swizzled; positions past S read as 0.
+// Encoding a map costs the host about a microsecond, and the served
+// shapes' launches are bound by the host, so the maps of the last
+// MAP_CACHE tensors each thread launched on are kept and reused while
+// pointer, shape, strides and box are unchanged.
+constexpr int MAP_CACHE = 48;
+
+struct MapKey {
+  const void* ptr;
+  long long v[9];
+};
+
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
               int hd, long long sb, long long ss, long long sh, int box_h,
               int box_s) {
+  const MapKey key = {ptr, {B, S, heads, hd, sb, ss, sh, box_h, box_s}};
+  static thread_local MapKey keys[MAP_CACHE];
+  static thread_local CUtensorMap maps[MAP_CACHE];
+  static thread_local int used = 0, next = 0;
+  for (int i = 0; i < used; ++i)
+    if (memcmp(&keys[i], &key, sizeof key) == 0) {
+      *map = maps[i];
+      return true;
+    }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
@@ -587,11 +617,35 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   const cuuint32_t box[4] = {CHUNK, static_cast<cuuint32_t>(box_h),
                              static_cast<cuuint32_t>(box_s), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % MAP_CACHE;
+  if (used < MAP_CACHE) ++used;
+  return true;
+}
+
+// The current device's SM count, asked of the runtime once per device.
+cudaError_t sm_count(int* sms) {
+  constexpr int DEVICES = 64;
+  static int counts[DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= DEVICES)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = counts[dev];
+  return cudaSuccess;
 }
 
 template <int HD>
@@ -601,19 +655,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         float scale, cudaStream_t stream) {
   const int G = H / KV;
   constexpr int BM = FlashShape<HD>::BM;
-  if (G > BM || BM % G != 0) return cudaErrorInvalidValue;
+  if (G > BM) return static_cast<cudaError_t>(ERR_UNSUPPORTED);
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, B, Sq, H, HD, st[0], st[1], st[2], G, BM / G) ||
       !make_map(&k_map, k, B, Skv, KV, HD, st[3], st[4], st[5], 1, BKV) ||
       !make_map(&v_map, v, B, Skv, KV, HD, st[6], st[7], st[8], 1, BKV))
-    return cudaErrorInvalidValue;
+    return static_cast<cudaError_t>(ERR_UNSUPPORTED);
   constexpr int bytes = FlashShape<HD>::SMEM;
   auto kern = flash_attention_wgmma_kernel<HD>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kern), bytes);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int units = (Sq + BM / G - 1) / (BM / G) * KV * B;
   kern<<<min(units, sms), FlashShape<HD>::THREADS, bytes, stream>>>(
@@ -663,7 +715,10 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // q [B,Sq,H,hd], k and v [B,Skv,KV,hd], out [B,Sq,H,hd], each by strides
 // (sb, ss, sh) in elements with a contiguous last dim: strides[12] =
 // {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh}.
-// Returns the cudaError_t of the launch.
+// Returns the cudaError_t of the launch, or ERR_UNSUPPORTED (-1) where
+// the bf16 kernel cannot take the input: more q heads a kv head than a
+// unit has rows (BM: 128, 64 at hd 256), or a tensor TMA cannot read
+// (strides not 16-byte multiples, a base not 16-byte aligned).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int dtype,
                                      int B, int H, int KV, int Sq, int Skv,

@@ -38,23 +38,32 @@
 // to nearest.  The three products at 495 TFLOP/s take 0.83 ms at the
 // join-blocking shape, under the fp32 FMA bound.
 //
+// Depth order.  Within each 16-column run of depth, an 8-deep step
+// takes the columns {s, s + 4, s + 8, s + 12} and {s + 1, s + 5, s + 9,
+// s + 13} (s = 0, 2 for the run's two steps), in that slot order, on both
+// paths below and for both operands: the order in which a lane of
+// mma.sync reads its fragments with one 16-byte shared load.  The two
+// paths thus feed the tensor cores the same products in the same slots
+// and steps, so a score's bits depend only on its two rows, never on the
+// batch it came in or on where the corpus sits in memory
+// (tests/test_torch_cuda.py holds the two paths to equal bits).
+//
 // Two product paths:
-//   16 or 64 queries a block (small searches, k > 32, D > 64): mma.sync
-//     m16n8k8 from a ring of STAGES shared-memory stages filled by
-//     16-byte cp.async copies (4-byte copies when D is not a multiple of
-//     4), so the next STAGES - 1 chunks (tile, 32 columns) are in flight
-//     while one is scored: with two blocks on an SM, 96 KB (16 queries) or
-//     48 KB (64) of loads per SM, above the ~26 KB that 3.35 TB/s times
-//     ~1 us of latency asks for.  Rows past N and columns past D are
-//     zero-filled and add exactly +0.  A stage holds its rows as two
-//     16-column planes, so a lane's fragment operands come from one
-//     conflict-free 16-byte shared load: within each 8-deep step, mma slot
-//     t takes depth 4t + 2s and slot t + 4 depth 4t + 2s + 1, the same
-//     permutation for both operands.  The fp32 sums of a tile live in
-//     shared memory.
+//   16 queries a block (small searches, k > 32, D > 64, unaligned rows):
+//     mma.sync m16n8k8 from a ring of STAGES shared-memory stages filled
+//     by 16-byte cp.async copies (4-byte copies when D is not a multiple
+//     of 4), so the next STAGES - 1 chunks (tile, 32 columns) are in
+//     flight while one is scored: with two blocks on an SM, 96 KB of loads
+//     per SM, above the ~26 KB that 3.35 TB/s times ~1 us of latency asks
+//     for.  Rows past N and columns past D are zero-filled and add exactly
+//     +0.  A stage holds its rows as two 16-column planes, so lane t's
+//     fragment operands of a run are one float4 (columns 4t .. 4t + 3).
+//     The fp32 sums of a tile live in shared memory.
 //   128 queries a block (join blocking: k <= 32, D <= 64, enough queries
 //     to fill the card): wgmma m64n128k8 from shared memory, the queries
-//     split once, the corpus through a TMA ring (topk_wide_kernel).
+//     split once, the corpus through a TMA ring (topk_wide_kernel); the
+//     split writes each 16-column run in the depth order above, and the
+//     selection runs on warps of its own.
 //
 // Selection, k <= 128 (the fused path, two launches).  After a tile's
 // last chunk the [BQ, 128] scores sit in shared memory, and the warp that
@@ -96,22 +105,16 @@ constexpr int KCAP = 128;       // largest k of the fused path
 constexpr int SELECT_THREADS = 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-// Block shape for BQ queries: warps in WARPS_M x WARPS_N, each scoring a
-// [WM, WN] piece of the [BQ, BN] tile as MT x NT mma tiles of 16 x 8.
-template <int BQ>
-struct Shape {
-  static constexpr int WARPS_M = BQ >= 32 ? 2 : 1;
-  static constexpr int WARPS_N = WARPS / WARPS_M;
-  static constexpr int WM = BQ / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int ROWS = BQ + BN;            // rows of a stage
-  static constexpr int STAGES = BQ == 16 ? 4 : 3;
-  static constexpr int STAGE_FLOATS = ROWS * DK;
-  static constexpr int MIN_BLOCKS = 2;           // per SM
-  static constexpr int SMEM_BYTES =
-      (STAGES * STAGE_FLOATS + BQ * SLD) * static_cast<int>(sizeof(float));
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "mma tiles");
-};
+// The mma.sync block: BQ queries, each warp scoring a [BQ, WN] piece of
+// the [BQ, BN] tile as NT mma tiles of 16 x 8.
+constexpr int BQ = 16;
+constexpr int WN = BN / WARPS, NT = WN / 8;
+constexpr int ROWS = BQ + BN;            // rows of a stage
+constexpr int STAGES = 4;
+constexpr int STAGE_FLOATS = ROWS * DK;
+constexpr int MIN_BLOCKS = 2;            // per SM
+constexpr int SMEM_BYTES =
+    (STAGES * STAGE_FLOATS + BQ * SLD) * static_cast<int>(sizeof(float));
 
 __device__ __forceinline__ uint64_t make_key(float s, int idx) {
   uint32_t b = __float_as_uint(s);
@@ -170,11 +173,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // Stage layout: plane p (columns 16p .. 16p+15 of the chunk) holds ROWS
 // rows of 16 floats; rows 0..BQ-1 are the queries, BQ.. the corpus tile.
 // VEC: 16-byte copies (D % 4 == 0, rows 16-byte aligned), else 4-byte.
-template <int BQ, bool VEC>
+template <bool VEC>
 __device__ __forceinline__ void fill_stage(float* st, const float* q,
                                            const float* c, int Q, int N,
                                            int D, int q0, int n0, int d0) {
-  constexpr int ROWS = Shape<BQ>::ROWS;
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     for (int e = tid; e < ROWS * (DK / 4); e += THREADS) {
@@ -232,64 +234,49 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Add one 32-deep stage to the warp's [WM, WN] accumulators.  Lane
-// (g = lane / 4, t = lane % 4) reads query rows g, g + 8 of each m tile and
-// corpus row g of each n tile, depths 4t .. 4t+3 of a plane, as float4s.
-template <int BQ>
-__device__ __forceinline__ void score_stage(
-    const float* st, int wm, int wn, int g, int t,
-    float (&acc)[Shape<BQ>::MT][Shape<BQ>::NT][4]) {
-  using S = Shape<BQ>;
+// Add one 32-deep stage to the warp's [BQ, WN] accumulators.  Lane
+// (g = lane / 4, t = lane % 4) reads query rows g, g + 8 and corpus row g
+// of each n tile, depths 4t .. 4t+3 of a plane, as float4s.
+__device__ __forceinline__ void score_stage(const float* st, int wn, int g,
+                                            int t, float (&acc)[NT][4]) {
 #pragma unroll
   for (int p = 0; p < DK / 16; ++p) {
-    const float* plane = st + p * S::ROWS * 16;
-    float4 a[S::MT][2], b[S::NT];
+    const float* plane = st + p * ROWS * 16;
+    const float4 a0 =
+        *reinterpret_cast<const float4*>(plane + g * 16 + 4 * t);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(plane + (g + 8) * 16 + 4 * t);
+    float4 b[NT];
 #pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt) {
-      const int r = wm * S::WM + mt * 16 + g;
-      a[mt][0] = *reinterpret_cast<const float4*>(plane + r * 16 + 4 * t);
-      a[mt][1] =
-          *reinterpret_cast<const float4*>(plane + (r + 8) * 16 + 4 * t);
-    }
-#pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt) {
-      const int r = BQ + wn * S::WN + nt * 8 + g;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int r = BQ + wn * WN + nt * 8 + g;
       b[nt] = *reinterpret_cast<const float4*>(plane + r * 16 + 4 * t);
     }
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      uint32_t ah[S::MT][4], al[S::MT][4], bh[S::NT][2], bl[S::NT][2];
+      uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+      // a0 (row g, slot t), a1 (row g+8, slot t), a2 (row g, slot t+4),
+      // a3 (row g+8, slot t+4); slot t = depth 4t+2s, t+4 = 4t+2s+1
+      split_tf32(s ? a0.z : a0.x, ah[0], al[0]);
+      split_tf32(s ? a1.z : a1.x, ah[1], al[1]);
+      split_tf32(s ? a0.w : a0.y, ah[2], al[2]);
+      split_tf32(s ? a1.w : a1.y, ah[3], al[3]);
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt) {
-        // a0 (row g, slot t), a1 (row g+8, slot t), a2 (row g, slot t+4),
-        // a3 (row g+8, slot t+4); slot t = depth 4t+2s, t+4 = 4t+2s+1
-        split_tf32(s ? a[mt][0].z : a[mt][0].x, ah[mt][0], al[mt][0]);
-        split_tf32(s ? a[mt][1].z : a[mt][1].x, ah[mt][1], al[mt][1]);
-        split_tf32(s ? a[mt][0].w : a[mt][0].y, ah[mt][2], al[mt][2]);
-        split_tf32(s ? a[mt][1].w : a[mt][1].y, ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < S::NT; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         // b0 (slot t, column g), b1 (slot t+4, column g)
         split_tf32(s ? b[nt].z : b[nt].x, bh[nt][0], bl[nt][0]);
         split_tf32(s ? b[nt].w : b[nt].y, bh[nt][1], bl[nt][1]);
       }
       // the same order for every score: lo*hi, hi*lo, then hi*hi
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+      for (int nt = 0; nt < NT; ++nt)
+        mma_tf32(acc[nt], al, bh[nt][0], bh[nt][1]);
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt)
-          mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+      for (int nt = 0; nt < NT; ++nt)
+        mma_tf32(acc[nt], ah, bl[nt][0], bl[nt][1]);
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt)
-          mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
-#pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt)
-          mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      for (int nt = 0; nt < NT; ++nt)
+        mma_tf32(acc[nt], ah, bh[nt][0], bh[nt][1]);
     }
   }
 }
@@ -423,20 +410,18 @@ __device__ __forceinline__ void write_lists(uint64_t* part, int warp,
 // [s * tiles_per_split, (s + 1) * tiles_per_split).  KEYS: write every key
 // to keys[q][n] (J unused).  Otherwise keep each query's best k and write
 // them to part[q][split][0..k), descending.
-template <int BQ, int J, bool VEC, bool KEYS>
-__global__ void __launch_bounds__(THREADS, Shape<BQ>::MIN_BLOCKS)
+template <int J, bool VEC, bool KEYS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     topk_score_kernel(const float* __restrict__ q,
                       const float* __restrict__ c, int Q, int N, int D,
                       int k, int tiles_per_split,
                       uint64_t* __restrict__ out) {
-  using S = Shape<BQ>;
   constexpr int TQ = BQ / WARPS;           // queries a warp selects for
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
-  float* sc = smem + S::STAGES * S::STAGE_FLOATS;   // scores [BQ][SLD]
+  float* sc = smem + STAGES * STAGE_FLOATS;   // scores [BQ][SLD]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  const int g = lane >> 2, t4 = lane & 3, wn = warp;
   const int q0 = blockIdx.x * BQ, split = blockIdx.y, n_splits = gridDim.y;
   const long long span = static_cast<long long>(tiles_per_split) * BN;
   const long long begin = split * span, end = begin + span;
@@ -460,34 +445,32 @@ __global__ void __launch_bounds__(THREADS, Shape<BQ>::MIN_BLOCKS)
   int p_tile = n_begin, p_chunk = 0, p_slot = 0;
   auto issue = [&](int s) {
     if (s < total) {
-      fill_stage<BQ, VEC>(ring + p_slot * S::STAGE_FLOATS, q, c, Q, N, D,
-                          q0, p_tile, p_chunk * DK);
+      fill_stage<VEC>(ring + p_slot * STAGE_FLOATS, q, c, Q, N, D, q0,
+                      p_tile, p_chunk * DK);
       if (++p_chunk == chunks) {
         p_chunk = 0;
         p_tile += BN;
       }
-      p_slot = p_slot + 1 == S::STAGES ? 0 : p_slot + 1;
+      p_slot = p_slot + 1 == STAGES ? 0 : p_slot + 1;
     }
     cp_async_commit();   // an empty group past the end keeps the count
   };
 #pragma unroll
-  for (int s = 0; s < S::STAGES - 1; ++s) issue(s);
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
   // the products of up to FOLD chunks, summed on the tensor cores
-  float part[S::MT][S::NT][4];
+  float part[NT][4];
 #pragma unroll
-  for (int mt = 0; mt < S::MT; ++mt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+    for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
   int n0 = n_begin, chunk = 0, slot = 0;
   for (int s = 0; s < total; ++s) {
-    cp_async_wait<S::STAGES - 2>();   // this thread's copies of stage s
+    cp_async_wait<STAGES - 2>();   // this thread's copies of stage s
     __syncthreads();   // everyone's copies; stage s - 1 fully consumed
-    issue(s + S::STAGES - 1);         // into the slot stage s - 1 held
-    score_stage<BQ>(ring + slot * S::STAGE_FLOATS, wm, wn, g, t4, part);
-    slot = slot + 1 == S::STAGES ? 0 : slot + 1;
+    issue(s + STAGES - 1);         // into the slot stage s - 1 held
+    score_stage(ring + slot * STAGE_FLOATS, wn, g, t4, part);
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
     ++chunk;
     const bool last = chunk == chunks;
     if (!last && chunk % FOLD) continue;
@@ -496,23 +479,20 @@ __global__ void __launch_bounds__(THREADS, Shape<BQ>::MIN_BLOCKS)
     // (each element of sc belongs to one lane: no barrier needed here)
     const bool first = chunk <= FOLD;
 #pragma unroll
-    for (int mt = 0; mt < S::MT; ++mt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < S::NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the m tile
-          float2* p = reinterpret_cast<float2*>(
-              sc + (wm * S::WM + mt * 16 + g + 8 * h) * SLD + wn * S::WN +
-              nt * 8 + 2 * t4);
-          float2 v = make_float2(part[mt][nt][2 * h], part[mt][nt][2 * h + 1]);
-          if (!first) {
-            const float2 o = *p;
-            v.x = __fadd_rn(o.x, v.x);
-            v.y = __fadd_rn(o.y, v.y);
-          }
-          *p = v;
-          part[mt][nt][2 * h] = part[mt][nt][2 * h + 1] = 0.f;
+      for (int h = 0; h < 2; ++h) {   // query rows g and g + 8
+        float2* p = reinterpret_cast<float2*>(
+            sc + (g + 8 * h) * SLD + wn * WN + nt * 8 + 2 * t4);
+        float2 v = make_float2(part[nt][2 * h], part[nt][2 * h + 1]);
+        if (!first) {
+          const float2 o = *p;
+          v.x = __fadd_rn(o.x, v.x);
+          v.y = __fadd_rn(o.y, v.y);
         }
+        *p = v;
+        part[nt][2 * h] = part[nt][2 * h + 1] = 0.f;
+      }
     if (!last) continue;
     chunk = 0;
 
@@ -551,9 +531,20 @@ __global__ void __launch_bounds__(THREADS, Shape<BQ>::MIN_BLOCKS)
 // columns past N and D zero-filled) into a ring of W_STAGES stages; the
 // two consumer warpgroups split each chunk in place (hi) and into a lo
 // buffer while the previous chunk's products run, then issue the three
-// products of every 8-deep step: wgmma m64n128k8, 64 queries each.  The
-// tile's scores go to shared memory for the same selection as above.  At
-// D <= 64 a score is at most 24 accumulations on the tensor cores.
+// products of every 8-deep step: wgmma m64n128k8, 64 queries each.  Both
+// splits place each 16-column run in the mma.sync path's depth order
+// (perm16), and the accumulators start each tile at +0 as the mma.sync
+// path's do, so the two paths give a score the same bits.  At D <= 64 a
+// score is at most 24 accumulations on the tensor cores.
+//
+// The tile's scores go to shared memory, where two more warpgroups, the
+// selectors (16 queries a warp), run the same selection as above while
+// the consumers compute the next tile: a consumer that selected between
+// its wgmmas would hold up its warpgroup, and every chunk would wait for
+// the slowest of eight warps' inserts.  (One selector warpgroup, 32
+// queries a warp, could not keep up.)  Two mbarriers hand the one score
+// buffer over: "scores full" (the consumers wrote a tile) and "scores
+// empty" (the selectors read it).
 // ---------------------------------------------------------------------------
 
 // d[64] (+)= A * B, both TF32 in shared memory (K-major), m64n128k8
@@ -589,11 +580,13 @@ constexpr int WQ = 128;                  // queries of a wide block
 constexpr int WD = 64;                   // its largest D: two 32-col chunks
 constexpr int W_STAGES = 3;
 constexpr int W_CONSUMERS = 256;         // two warpgroups
-constexpr int W_THREADS = W_CONSUMERS + 32;
+constexpr int W_SELECTORS = 256;         // two warpgroups
+constexpr int W_PRODUCER = W_CONSUMERS + W_SELECTORS;   // its thread
+constexpr int W_THREADS = W_PRODUCER + 32;
 constexpr int W_CHUNK = BN * 128;        // bytes of a corpus chunk
 constexpr int W_QCHUNK = WQ * 128;       // bytes of a query chunk
 constexpr int W_SMEM = 1024 + 4 * W_QCHUNK + W_STAGES * W_CHUNK +
-                       2 * W_CHUNK + WQ * SLD * 4 + 8 * 2 * W_STAGES;
+                       2 * W_CHUNK + WQ * SLD * 4 + 8 * (2 * W_STAGES + 2);
 
 // Byte offset of (row, col) in a [rows][32] fp32 tile with 128-byte
 // swizzle: the 16-byte unit col / 4 of row r sits at unit (col / 4) ^
@@ -602,29 +595,40 @@ __device__ __forceinline__ uint32_t swz(int row, int col) {
   return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
 }
 
-// Split the float4 at ``p`` in place to its TF32 high parts, writing the
-// remainders to ``lo``.
-__device__ __forceinline__ void split4(float* p, float* lo) {
-  float4 v = *reinterpret_cast<float4*>(p), r;
-  uint32_t h;
-  float* x[4] = {&v.x, &v.y, &v.z, &v.w};
-  float* y[4] = {&r.x, &r.y, &r.z, &r.w};
+// Where column d of a 16-column run goes so that wgmma's 8-deep steps
+// read the mma.sync path's order: 16-byte unit d % 4, element d / 4.
+__host__ __device__ constexpr int perm16(int d) {
+  return 16 * (d / 16) + 4 * (d % 4) + (d % 16) / 4;
+}
+
+// Split row ``row``'s 16-column run ``half`` of a swizzled [rows][32]
+// chunk: read its four 16-byte units (columns in order), write their TF32
+// high parts back in place and the remainders to ``lo`` (same offsets),
+// both transposed into perm16's order.
+__device__ __forceinline__ void split_run(unsigned char* hi,
+                                          unsigned char* lo, int row,
+                                          int half) {
+  float x[4][4];   // x[i][j]: column 4i + j of the run
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t l;
-    split_tf32(*x[i], h, l);
-    *x[i] = __uint_as_float(h);
-    *y[i] = __uint_as_float(l);
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(x[i]) =
+        *reinterpret_cast<const float4*>(hi + swz(row, 16 * half + 4 * i));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {   // unit j: columns j, j + 4, j + 8, j + 12
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[i][j], h[i], l[i]);
+    const uint32_t at = swz(row, 16 * half + 4 * j);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
   }
-  *reinterpret_cast<float4*>(p) = v;
-  *reinterpret_cast<float4*>(lo) = r;
 }
 
 __global__ void __launch_bounds__(W_THREADS, 1)
     topk_wide_kernel(const __grid_constant__ CUtensorMap c_map,
                      const float* __restrict__ q, int Q, int N, int D, int k,
                      int tiles_per_split, uint64_t* __restrict__ part) {
-  constexpr int TQ = WQ / 8;             // queries a consumer warp selects
+  constexpr int TQ = WQ / (W_SELECTORS / 32);   // queries a selector warp
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   unsigned char* qhi = base;                         // 2 query chunks
@@ -635,6 +639,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   const uint32_t bars = smem_u32(sc + WQ * SLD);
   auto full_bar = [&](int s) { return bars + 8 * s; };
   auto empty_bar = [&](int s) { return bars + 8 * (W_STAGES + s); };
+  const uint32_t sc_full = bars + 16 * W_STAGES, sc_empty = sc_full + 8;
 
   const int q0 = blockIdx.x * WQ, split = blockIdx.y, n_splits = gridDim.y;
   const long long span = static_cast<long long>(tiles_per_split) * BN;
@@ -649,13 +654,15 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       mbar_init(full_bar(s), 1);
       mbar_init(empty_bar(s), W_CONSUMERS);
     }
+    mbar_init(sc_full, W_CONSUMERS);
+    mbar_init(sc_empty, W_SELECTORS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= W_CONSUMERS) {
+  if (threadIdx.x >= W_PRODUCER) {
     // ---- producer: one thread streams the corpus chunks ----
-    if (threadIdx.x != W_CONSUMERS) return;
+    if (threadIdx.x != W_PRODUCER) return;
     prefetch_map(&c_map);
     for (int s = 0; s < total; ++s) {
       const int slot = s % W_STAGES, round = s / W_STAGES;
@@ -664,6 +671,26 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       tma_load_2d(smem_u32(ring + slot * W_CHUNK), &c_map, full_bar(slot),
                   (s % chunks) * DK, n_begin + (s / chunks) * BN);
     }
+    return;
+  }
+
+  if (threadIdx.x >= W_CONSUMERS) {
+    // ---- selectors: tile t's scores while the consumers compute t + 1 ----
+    const int warp = (threadIdx.x - W_CONSUMERS) >> 5, lane = threadIdx.x & 31;
+    uint64_t lists[TQ][1];
+    float bars_q[TQ];
+    for (int i = 0; i < TQ; ++i) {
+      bars_q[i] = -INFINITY;
+      lists[i][0] = 0;
+    }
+    const int tiles = (n_end - n_begin + BN - 1) / BN;
+    for (int t = 0; t < tiles; ++t) {
+      mbar_wait(sc_full, t & 1);
+      select_tile<TQ, 1>(sc, warp, lane, q0, Q, n_begin + t * BN, n_end, k,
+                         bars_q, lists);
+      mbar_arrive(sc_empty);
+    }
+    write_lists<TQ, 1>(part, warp, lane, q0, Q, k, split, n_splits, lists);
     return;
   }
 
@@ -678,35 +705,26 @@ __global__ void __launch_bounds__(W_THREADS, 1)
                         : 0.f;
     uint32_t h, l;
     split_tf32(x, h, l);
-    const uint32_t at = (col / DK) * W_QCHUNK + swz(row, col % DK);
+    const uint32_t at = (col / DK) * W_QCHUNK + swz(row, perm16(col % DK));
     *reinterpret_cast<uint32_t*>(qhi + at) = h;
     *reinterpret_cast<uint32_t*>(qlo + at) = l;
   }
   auto split_stage = [&](int s) {   // chunk s: hi in place, lo beside it
     mbar_wait(full_bar(s % W_STAGES), (s / W_STAGES) & 1);
-    float* hi = reinterpret_cast<float*>(ring + (s % W_STAGES) * W_CHUNK);
-    float* lb = reinterpret_cast<float*>(lo + (s % 2) * W_CHUNK);
-    for (int e = tid; e < W_CHUNK / 16; e += W_CONSUMERS)
-      split4(hi + 4 * e, lb + 4 * e);
+    static_assert(W_CONSUMERS == 2 * BN, "a thread splits one run");
+    split_run(ring + (s % W_STAGES) * W_CHUNK, lo + (s % 2) * W_CHUNK,
+              tid >> 1, tid & 1);
     fence_proxy_async();            // visible to the tensor cores
   };
   if (total > 0) split_stage(0);
   fence_proxy_async();
   named_barrier(1, W_CONSUMERS);
 
-  uint64_t lists[TQ][1];
-  float bars_q[TQ];
-  for (int i = 0; i < TQ; ++i) {
-    bars_q[i] = -INFINITY;
-    lists[i][0] = 0;
-  }
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  // Warp w's accumulators hold queries 16w .. 16w + 15, the ones it
-  // selects for: it writes their scores to its own rows of sc and reads
-  // them back during the next chunk's products, with no block barrier.
-  int n0 = n_begin, sel_n0 = -1;
+  // warp w's accumulators hold queries 16w .. 16w + 15
+  int tile = 0;
   for (int s = 0; s < total; ++s) {
     const int ch = s % chunks;
     const uint32_t b_hi = smem_u32(ring + (s % W_STAGES) * W_CHUNK);
@@ -718,26 +736,19 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     for (int ks = 0; ks < DK / 8; ++ks) {
       // the same order for every score: lo*hi, hi*lo, then hi*hi
       wgmma_tf32_n128(acc, sw128_desc(a_lo + 32 * ks, 16, 1024),
-                      sw128_desc(b_hi + 32 * ks, 16, 1024),
-                      ch > 0 || ks > 0);
+                      sw128_desc(b_hi + 32 * ks, 16, 1024), 1);
       wgmma_tf32_n128(acc, sw128_desc(a_hi + 32 * ks, 16, 1024),
                       sw128_desc(b_lo + 32 * ks, 16, 1024), 1);
       wgmma_tf32_n128(acc, sw128_desc(a_hi + 32 * ks, 16, 1024),
                       sw128_desc(b_hi + 32 * ks, 16, 1024), 1);
     }
     wgmma_commit();
-    // while the products run: the last tile's selection, the next split
-    if (sel_n0 >= 0) {
-      __syncwarp();
-      select_tile<TQ, 1>(sc, warp, lane, q0, Q, sel_n0, n_end, k, bars_q,
-                         lists);
-      sel_n0 = -1;
-    }
-    if (s + 1 < total) split_stage(s + 1);
+    if (s + 1 < total) split_stage(s + 1);   // while the products run
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(empty_bar(s % W_STAGES));
     if (ch == chunks - 1) {   // the tile's scores, to this warp's rows
+      if (tile > 0) mbar_wait(sc_empty, (tile - 1) & 1);
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -745,18 +756,14 @@ __global__ void __launch_bounds__(W_THREADS, 1)
           *reinterpret_cast<float2*>(sc + (warp * 16 + g + 8 * h) * SLD +
                                      8 * j + 2 * t4) =
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      sel_n0 = n0;
-      n0 += BN;
+      mbar_arrive(sc_full);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      ++tile;
     }
     // chunk s + 1 is split, and everyone is done with chunk s's lo
     named_barrier(1, W_CONSUMERS);
   }
-  if (sel_n0 >= 0) {
-    __syncwarp();
-    select_tile<TQ, 1>(sc, warp, lane, q0, Q, sel_n0, n_end, k, bars_q,
-                       lists);
-  }
-  write_lists<TQ, 1>(part, warp, lane, q0, Q, k, split, n_splits, lists);
 }
 
 // Fused path, launch 2: one block per query.  Warp w merges the split
@@ -872,18 +879,18 @@ __global__ void __launch_bounds__(SELECT_THREADS)
               idx + static_cast<size_t>(qi) * k + e);
 }
 
-template <int BQ, int J, bool KEYS>
+template <int J, bool KEYS>
 cudaError_t launch_score(const float* q, const float* c, int Q, int N,
                          int D, int k, int tiles_per_split, int splits,
                          uint64_t* out, cudaStream_t stream) {
-  constexpr int bytes = Shape<BQ>::SMEM_BYTES;
+  constexpr int bytes = SMEM_BYTES;
   const dim3 grid((Q + BQ - 1) / BQ, splits);
   // 16-byte copies need 16-byte aligned rows
   const uintptr_t base = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(c);
   const bool vec = D % 4 == 0 && base % 16 == 0;
-  auto kern = vec ? topk_score_kernel<BQ, J, true, KEYS>
-                  : topk_score_kernel<BQ, J, false, KEYS>;
+  auto kern = vec ? topk_score_kernel<J, true, KEYS>
+                  : topk_score_kernel<J, false, KEYS>;
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kern), bytes);
   if (err != cudaSuccess) return err;
   kern<<<grid, THREADS, bytes, stream>>>(q, c, Q, N, D, k, tiles_per_split,
@@ -891,14 +898,13 @@ cudaError_t launch_score(const float* q, const float* c, int Q, int N,
   return cudaGetLastError();
 }
 
-template <int BQ, int J>
+template <int J>
 cudaError_t launch_fused(const float* q, const float* c, int Q, int N,
                          int D, int k, int tiles_per_split, int splits,
                          uint64_t* part, float* vals, int* idx,
                          cudaStream_t stream) {
-  cudaError_t err = launch_score<BQ, J, false>(q, c, Q, N, D, k,
-                                               tiles_per_split, splits,
-                                               part, stream);
+  cudaError_t err = launch_score<J, false>(q, c, Q, N, D, k, tiles_per_split,
+                                           splits, part, stream);
   if (err != cudaSuccess) return err;
   topk_merge_kernel<J><<<Q, THREADS, 0, stream>>>(part, splits, k, vals,
                                                    idx);
@@ -939,15 +945,13 @@ cudaError_t launch_wide(const float* q, const float* c, int Q, int N,
   return cudaGetLastError();
 }
 
-template <int BQ>
 cudaError_t launch_large(const float* q, const float* c, int Q, int N,
                          int D, int k, int tiles_per_split, int splits,
                          uint64_t* keys, uint64_t* buf, int P2, float* vals,
                          int* idx, cudaStream_t stream) {
   if (N > 0) {
-    cudaError_t err = launch_score<BQ, 1, true>(q, c, Q, N, D, k,
-                                                tiles_per_split, splits,
-                                                keys, stream);
+    cudaError_t err = launch_score<1, true>(q, c, Q, N, D, k, tiles_per_split,
+                                            splits, keys, stream);
     if (err != cudaSuccess) return err;
   }
   select_sort_kernel<<<Q, SELECT_THREADS, 0, stream>>>(keys, N, k, P2, buf,
@@ -961,8 +965,8 @@ extern "C" {
 
 // Fused path (1 <= k <= 128).  q [Q,D], c [N,D]: contiguous unit fp32.
 // part: int64 scratch [Q, splits, k]; the corpus is cut into ``splits``
-// runs of ``tiles_per_split`` 128-row tiles.  block_q: 16; 64 with
-// k <= 32; 128 (the wgmma path) with k <= 32, D <= 64, D % 4 == 0 and a
+// runs of ``tiles_per_split`` 128-row tiles.  block_q: 16 (the mma.sync
+// path), or 128 (the wgmma path) with k <= 32, D <= 64, D % 4 == 0 and a
 // 16-byte aligned corpus.
 int repro_similarity_topk(const float* q, const float* c, int Q, int N,
                           int D, int k, int block_q, int tiles_per_split,
@@ -973,23 +977,20 @@ int repro_similarity_topk(const float* q, const float* c, int Q, int N,
     return cudaErrorInvalidValue;
   auto* p = static_cast<uint64_t*>(part);
   auto s = static_cast<cudaStream_t>(stream);
-  if (block_q == 16)
-    return k <= 32 ? launch_fused<16, 1>(q, c, Q, N, D, k, tiles_per_split,
-                                         splits, p, vals, idx, s)
-                   : launch_fused<16, 4>(q, c, Q, N, D, k, tiles_per_split,
-                                         splits, p, vals, idx, s);
-  if (block_q == 64 && k <= 32)
-    return launch_fused<64, 1>(q, c, Q, N, D, k, tiles_per_split, splits, p,
-                               vals, idx, s);
-  if (block_q == 128)
+  if (block_q == BQ)
+    return k <= 32 ? launch_fused<1>(q, c, Q, N, D, k, tiles_per_split,
+                                     splits, p, vals, idx, s)
+                   : launch_fused<4>(q, c, Q, N, D, k, tiles_per_split,
+                                     splits, p, vals, idx, s);
+  if (block_q == WQ)
     return launch_wide(q, c, Q, N, D, k, tiles_per_split, splits, p, vals,
                        idx, s);
   return cudaErrorInvalidValue;
 }
 
 // Large path (any k >= 1).  keys: int64 scratch [Q, N]; buf: int64
-// scratch [Q, P2] with P2 a power of two >= min(k, N).  block_q: 16 or 64;
-// the corpus splits as on the fused path.
+// scratch [Q, P2] with P2 a power of two >= min(k, N).  block_q: 16; the
+// corpus splits as on the fused path.
 int repro_similarity_topk_large(const float* q, const float* c, int Q,
                                 int N, int D, int k, int block_q,
                                 int tiles_per_split, int splits, void* keys,
@@ -1001,13 +1002,9 @@ int repro_similarity_topk_large(const float* q, const float* c, int Q,
   auto* kp = static_cast<uint64_t*>(keys);
   auto* bp = static_cast<uint64_t*>(buf);
   auto s = static_cast<cudaStream_t>(stream);
-  if (block_q == 16)
-    return launch_large<16>(q, c, Q, N, D, k, tiles_per_split, splits, kp,
-                            bp, P2, vals, idx, s);
-  if (block_q == 64)
-    return launch_large<64>(q, c, Q, N, D, k, tiles_per_split, splits, kp,
-                            bp, P2, vals, idx, s);
-  return cudaErrorInvalidValue;
+  if (block_q != BQ) return cudaErrorInvalidValue;
+  return launch_large(q, c, Q, N, D, k, tiles_per_split, splits, kp, bp, P2,
+                      vals, idx, s);
 }
 
 }  // extern "C"

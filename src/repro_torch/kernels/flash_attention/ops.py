@@ -9,6 +9,7 @@ device; only comparisons of the kernel against it pass that.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -19,11 +20,13 @@ LIB = build.CudaLibrary("flash_attention.cu", {
     "repro_flash_attention": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 })
+_pack_strides = struct.Struct("12q").pack   # the entry point's strides[12]
 HEAD_DIMS = (64, 128, 256)
-GROUP_ROWS = 64      # bf16 kernel: its units hold whole GQA groups in 64s
+# returned by the entry point where the bf16 kernel cannot take an input
+ERR_UNSUPPORTED = -1
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
@@ -41,26 +44,32 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if hd not in HEAD_DIMS or H % KV:
         raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS} "
                          f"and H divisible by KV; got hd={hd}, H={H}, KV={KV}")
-    if q.dtype == torch.bfloat16 and GROUP_ROWS % (H // KV):
-        raise ValueError(f"the bf16 kernel's rows come in {GROUP_ROWS}s of "
-                         f"whole GQA groups: H / KV = {H // KV} must divide "
-                         f"{GROUP_ROWS}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k/v shapes {tuple(k.shape)} / {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
     if Sq == 0 or Skv == 0:
         raise ValueError("flash attention needs Sq > 0 and Skv > 0")
+    # The bf16 kernel's TMA rule (16-byte strides and base) is checked
+    # where the tensor maps are made, in the entry point, which returns
+    # ERR_UNSUPPORTED; the fp32 kernel reads elements one by one.
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        build.check_operand(name, t, q.dtype)
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, q has {q.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last dim must be contiguous")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    strides = _pack_strides(*q.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], *out.stride()[:3])
     err = LIB.load().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         build.DTYPE_CODE[q.dtype], B, H, KV, Sq, Skv, hd, strides,
         int(causal), int(window), hd ** -0.5, build.stream_ptr(q.device))
+    if err == ERR_UNSUPPORTED:
+        raise ValueError(f"the bf16 flash attention kernel cannot take "
+                         f"H / KV = {H // KV} q heads a kv head at hd {hd}, "
+                         f"or TMA cannot read the strides of q, k, v or out")
     build.check(err, "flash_attention")
     LAUNCHES += 1
     return out

@@ -27,9 +27,9 @@ LIB = build.CudaLibrary("similarity_topk.cu", {
 })
 BLOCK_N = 128        # corpus rows per tile (csrc/similarity_topk.cu)
 K_FUSED = 128        # largest k the fused path keeps in registers
-K_WIDE = 32          # largest k of the 64- and 128-query blocks
+K_WIDE = 32          # largest k of the 128-query block
 WIDE_D = 64          # largest D of the 128-query block (queries resident)
-BLOCKS_PER_SM = 2    # 16- and 64-query blocks an SM holds
+BLOCKS_PER_SM = 2    # 16-query blocks an SM holds
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
@@ -43,18 +43,14 @@ def _sm_count(device) -> int:
 
 def _block(device, Q: int, n_tiles: int, D: int, k: int, aligned: bool):
     """``(block_q, slots)``: queries a block and blocks the card holds.
-    Wider blocks read the corpus fewer times but pay only where their
-    blocks fill the card; small searches take 16 queries a block (more
-    blocks, shorter selections).  128 (one block an SM, products on
-    wgmma) needs D <= 64, D % 4 == 0 and a 16-byte aligned corpus; 64
-    (two an SM, mma.sync) takes any D."""
+    128 queries a block (one an SM, products on wgmma) read the corpus
+    fewer times, and are taken for k <= 32, D <= 64, D % 4 == 0 and a
+    16-byte aligned corpus where their blocks fill the card; otherwise 16
+    (two an SM, mma.sync).  Both give a score the same bits."""
     sms = _sm_count(device)
-    if Q > 16 and k <= K_WIDE:
-        if (D <= WIDE_D and D % 4 == 0 and aligned
-                and -(-Q // 128) * n_tiles >= sms):
-            return 128, sms
-        if -(-Q // 64) * n_tiles >= BLOCKS_PER_SM * sms:
-            return 64, BLOCKS_PER_SM * sms
+    if (Q > 16 and k <= K_WIDE and D <= WIDE_D and D % 4 == 0 and aligned
+            and -(-Q // 128) * n_tiles >= sms):
+        return 128, sms
     return 16, BLOCKS_PER_SM * sms
 
 

@@ -174,14 +174,15 @@ def test_flash_kernel_hd256(cuda, dtype, Sq, window):
 
 
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("G", [1, 3, 4, 7, 16])
 @pytest.mark.parametrize("Sq,Skv,window", [(70, 70, 0), (45, 200, 48),
                                            (130, 130, 48)])
 def test_flash_kernel_gqa_groups(cuda, hd, G, Sq, Skv, window):
     """The bf16 kernel's units hold whole GQA groups (rows are (position,
-    head) pairs): every head dim at group sizes 1, 4 and 16, Sq below Skv,
-    Sq not a multiple of a unit's positions, causal and window bands; a
-    second launch gives the same bits."""
+    head) pairs): every head dim at group sizes 1, 4 and 16, and 3 and 7,
+    which do not divide a unit's rows; Sq below Skv, Sq not a multiple of
+    a unit's positions, causal and window bands; a second launch gives the
+    same bits."""
     B, KV = 2, 2
     H = KV * G
     q, k, v = _randn(24, [(B, Sq, H, hd), (B, Skv, KV, hd),
@@ -214,13 +215,21 @@ def test_flash_kernel_reads_fused_qkv(cuda, hd, G, window):
 
 
 def test_flash_kernel_rejects_what_tma_cannot_read(cuda):
-    """A GQA group that does not divide the kernel's 64-row groups, and a
-    row stride that is not a multiple of 16 bytes, raise (no fallback)."""
-    q, k, v = _randn(26, [(2, 16, 6, 64), (2, 16, 2, 64), (2, 16, 2, 64)],
-                     torch.bfloat16, cuda)
+    """A GQA group larger than a unit's rows (64 at hd 256), and a row
+    stride that is not a multiple of 16 bytes, raise (no fallback); a
+    group of exactly 64 at hd 256 runs."""
+    q, k, v = _randn(26, [(1, 16, 65, 256), (1, 16, 1, 256),
+                          (1, 16, 1, 256)], torch.bfloat16, cuda)
+    before = flash_ops.LAUNCHES
     with pytest.raises(ValueError):
-        flash_ops.flash_attention(q, k, v)           # G = 3
-    wide, = _randn(27, [(2, 16, 4, 65)], torch.bfloat16, cuda)
+        flash_ops.flash_attention(q, k, v)           # G = 65
+    assert flash_ops.LAUNCHES == before
+    out = flash_ops.flash_attention(q[:, :, :64], k, v)
+    ref = flash_ops.flash_attention(q[:, :, :64], k, v, impl="reference")
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    wide, k, v = _randn(27, [(2, 16, 4, 65), (2, 16, 2, 64), (2, 16, 2, 64)],
+                        torch.bfloat16, cuda)
     with pytest.raises(ValueError):
         flash_ops.flash_attention(wide[..., :64], k, v)   # 130-byte rows
 
@@ -436,15 +445,15 @@ def test_topk_kernel_sign_vector_ties(cuda):
     (1024, 5000, 64, 8),          # the 128-query block, on wgmma
     (300, 60000, 48, 32),         # 128-query block, columns past D zero
     (1024, 20000, 16, 4),         # 128-query block, one 32-column chunk
-    (1024, 3000, 100, 32),        # the 64-query block (D > 64), 4-byte copies
+    (1024, 3000, 100, 32),        # D > 64: 16-query blocks, 4-byte copies
     (16, 300, 1024, 129),         # large path through the same tile
     (17, 129, 3, 129),            # large path, k = N
     (3, 50, 100, 100),            # k > N on the fused path
 ])
 def test_topk_kernel_tensor_core_shapes(cuda, Q, N, D, k):
     """The 3xTF32 tiles and their rings at the edges of their shapes:
-    ragged corpus tiles and 32-deep chunks, the 16-, 64- and 128-query
-    blocks, both copy widths, both selection paths."""
+    ragged corpus tiles and 32-deep chunks, the 16- and 128-query blocks,
+    both copy widths, both selection paths."""
     q, c = _randn(22, [(Q, D), (N, D)], torch.float32, cuda)
     vals, idx = _check_topk(q, c, k)
     if k > N:
@@ -480,6 +489,31 @@ def test_topk_kernel_duplicate_rows_tie_to_lower_index(cuda, Q, D, k):
                 copies += 1
                 assert first[0] < i and first[1] == v, (r, first, i, v)
     assert copies >= Q                 # the copies did reach the top k
+
+
+@pytest.mark.parametrize("N,D,k", [(5000, 64, 8), (3000, 48, 32)])
+def test_topk_kernel_scores_do_not_depend_on_the_batch(cuda, N, D, k):
+    """A query's results are the same bits whether it comes in a batch of
+    1024 (128-query blocks on wgmma), in batches of 16 (mma.sync), or
+    against a corpus view that is not 16-byte aligned (mma.sync with
+    4-byte copies): a score depends only on its two rows."""
+    Q = 1024
+    q, c = (topk_ops.l2_normalize(x)
+            for x in _randn(28, [(Q, D), (N, D)], torch.float32, cuda))
+    tiles = -(-N // topk_ops.BLOCK_N)
+    assert topk_ops._block(cuda, Q, tiles, D, k, True)[0] == 128
+    assert topk_ops._block(cuda, 16, tiles, D, k, True)[0] == 16
+    assert topk_ops._block(cuda, Q, tiles, D, k, False)[0] == 16
+    vals, idx = topk_ops.similarity_topk_cuda(q, c, k)
+    parts = [topk_ops.similarity_topk_cuda(q[i:i + 16], c, k)
+             for i in range(0, Q, 16)]
+    assert torch.equal(torch.cat([p[0] for p in parts]), vals)
+    assert torch.equal(torch.cat([p[1] for p in parts]), idx)
+    shifted = torch.empty(N * D + 1, device=cuda)[1:].view(N, D)
+    shifted.copy_(c)
+    assert shifted.data_ptr() % 16
+    sv, si = topk_ops.similarity_topk_cuda(q, shifted, k)
+    assert torch.equal(sv, vals) and torch.equal(si, idx)
 
 
 def test_index_launches_k3_per_search(cuda):

@@ -9,9 +9,10 @@ commit's build and this tree's, at the shapes ``chip_smoke.py`` times.
 out of git's view, in a directory ``.gitignore`` lists): its
 ``ops.py`` wrappers are loaded under another name and bound to a library
 built from its own ``csrc/*.cu`` (the same nvcc flags), so the two
-versions share inputs, card and clocks.  Each shape is timed in turns,
-old, new, new, old, and each version's time is the mean of its two
-turns.  Every new result is first held to the plain version with
+versions share inputs, card and clocks.  Each shape is timed in ROUNDS
+(4) rounds of turns, old, new, new, old, and each version's time is the
+mean of its turns; a served shape's launches are
+bound by the host, so each of its turns times 200 calls.  Every new result is first held to the plain version with
 ``chip_smoke.py``'s gates; the old one is only timed.  Needs a CUDA card;
 imports nothing of JAX.  ``--out FILE`` also writes the rows as JSON.
 """
@@ -65,11 +66,17 @@ def fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def turns(torch, old_fn, new_fn, iters):
-    """old, new, new, old: the mean of each version's two turns."""
-    t = [smoke.cuda_time_ms(f, iters) for f in (old_fn, new_fn, new_fn,
-                                                  old_fn)]
-    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+ROUNDS = 4
+
+
+def turns(old_fn, new_fn, iters):
+    """ROUNDS rounds of old, new, new, old: the mean of each version's
+    turns, and every turn's time in order."""
+    t = [smoke.cuda_time_ms(f, iters)
+         for _ in range(ROUNDS) for f in (old_fn, new_fn, new_fn, old_fn)]
+    old = [x for i, x in enumerate(t) if i % 4 in (0, 3)]
+    new = [x for i, x in enumerate(t) if i % 4 in (1, 2)]
+    return sum(old) / len(old), sum(new) / len(new), t
 
 
 def device_ms(torch, fn, iters=20):
@@ -101,7 +108,7 @@ def ab_topk(torch, old, new, dev):
                                      ri)
         iters = 10 if N > 4096 else 200
         old_ms, new_ms, raw = turns(
-            torch, lambda: old.similarity_topk_cuda(q, c, k),
+            lambda: old.similarity_topk_cuda(q, c, k),
             lambda: new.similarity_topk_cuda(q, c, k), iters)
         lib_ms = smoke.cuda_time_ms(lambda: torch.topk(q @ c.T, k), iters)
         dev_old = device_ms(torch, lambda: old.similarity_topk_cuda(q, c, k))
@@ -139,8 +146,9 @@ def ab_flash(torch, old, new, dev):
         if not err <= smoke.TOL["bfloat16"]:
             smoke.fail(f"K2 {what}: max|err| {err} against plain")
         old_ms, new_ms, raw = turns(
-            torch, lambda: old.flash_attention_cuda(q, k, v, window=window),
-            lambda: new.flash_attention_cuda(q, k, v, window=window), 50)
+            lambda: old.flash_attention_cuda(q, k, v, window=window),
+            lambda: new.flash_attention_cuda(q, k, v, window=window),
+            200 if "served" in what else 50)
         pos = torch.arange(S, device=dev)
         mask = pos[None] <= pos[:, None]
         if window:
