@@ -146,6 +146,30 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, iters: int = 20):
+    """The kernels' own time per call from the profiler: for each kernel
+    ``fn`` launches once a call, its mean device time a launch, summed.
+    Where a call is short, the events of ``cuda_time_ms`` time the host's
+    launches instead.  Averaged over the launches recorded, not over
+    ``iters``: a profiler session after an earlier one in the same process
+    may not record every launch.  None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+             if e.self_device_time_total > 0 and e.count)
+    return us / 1e3 if us else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def max_err(x, y) -> float:
     return float((x.float() - y.float()).abs().max())
 
@@ -173,6 +197,16 @@ def decode_bound(q, kc, lengths):
               + 4 * B + 4 * B * H)            # lengths, lse
     ops = 4.0 * keys * H * hd                 # q.k and p.v
     return bound(nbytes, ops, str(q.dtype).split(".")[-1])
+
+
+def rwkv_bound(r):
+    """K5: r, k, v read in their type, w read and o written in fp32, u,
+    s0 and sT in fp32; 5 hd^2 operations a step per (row, head)."""
+    B, S, H, hd = r.shape
+    n = B * S * H * hd
+    nbytes = (3 * r.element_size() * n + 4 * n + 4 * n   # r,k,v; w; o
+              + 4 * H * hd + 2 * 4 * B * H * hd * hd)   # u; s0, sT
+    return bound(nbytes, 5.0 * n * hd, "float32")
 
 
 def flash_bound(q, k, causal, window):
@@ -326,7 +360,7 @@ def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
     """K4 and K5 against their plain versions, bf16 and fp32 inputs, at
     the served models' widths (K4: W = 4096; K5: 32 heads of 64) and the
     full shapes (B = 8, S = 384), a served decode step (S = 1) and odd
-    sizes; K5 also chained: two launches over the halves, the second from
+    sizes, K5 also with decays that underflow to 0; K5 also chained: two launches over the halves, the second from
     the first's state, equal one launch over the whole.  K4 must give the
     plain version's bits (both round the multiply and the add apart);
     K5 within TOL["float32"] relative to the largest plain value."""
@@ -350,11 +384,19 @@ def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
                 fail(f"K4 {name} B={B} S={S} W={W} differs from its plain "
                      "version")
             errs["rglru_scan"] = max(errs["rglru_scan"], e)
-        for B, S, H, hd in ((8, 384, 32, 64), (8, 45, 32, 64),
-                            (8, 1, 32, 64), (3, 37, 5, 64), (2, 19, 3, 16)):
+        for B, S, H, hd, small in ((8, 384, 32, 64, False),
+                                   (8, 45, 32, 64, False),
+                                   (8, 1, 32, 64, False),
+                                   (3, 37, 5, 64, False),
+                                   (2, 19, 3, 16, False),
+                                   (8, 385, 32, 64, True)):
             r, k, v = (torch.randn((B, S, H, hd), generator=gen,
                                    device=dev).to(dtype) for _ in range(3))
-            w = decays(torch, gen, (B, S, H, hd), dev)
+            if small:       # w = exp(-exp(x)), x up to 5: some w are 0
+                x = torch.randn((B, S, H, hd), generator=gen, device=dev)
+                w = torch.exp(-torch.exp((2 * x + 1).clamp(-6, 5)))
+            else:
+                w = decays(torch, gen, (B, S, H, hd), dev)
             u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
             s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
             o, sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
@@ -377,10 +419,13 @@ def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
             repeat = (torch.equal(again[0], o)
                       and torch.equal(again[1], sT))
             e_abs = max(max_err(o, ref_o), max_err(sT, ref_sT))
-            print(f"K5 rwkv6 {name} B={B} S={S} H={H} hd={hd}: rel. max|"
+            finite = bool(torch.isfinite(o).all() and torch.isfinite(sT).all())
+            print(f"K5 rwkv6 {name} B={B} S={S} H={H} hd={hd}"
+                  f"{' (decays down to 0)' if small else ''}: rel. max|"
                   f"err| vs plain {e:.3g} (tol {TOL['float32']}), max|err| "
-                  f"{e_abs:.3g}{msg}, repeat bitwise equal {repeat}")
-            if not (e <= TOL["float32"] and repeat):
+                  f"{e_abs:.3g}{msg}, repeat bitwise equal {repeat}, "
+                  f"finite {finite}")
+            if not (e <= TOL["float32"] and repeat and finite):
                 fail(f"K5 {name} B={B} S={S} H={H} disagrees with its plain "
                      "version or with itself")
             errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e_abs)
@@ -865,16 +910,15 @@ def time_rwkv(torch, rwkv_ops, what, r, k, v, w, u, s0, iters=20):
                       iters)
     plain_ms = cuda_time_ms(lambda: rwkv_ops.rwkv6_scan(
         r, k, v, w, u, s0, impl="reference"), 2, warmup=1)
-    n = B * S * H * hd
-    nbytes = (3 * r.element_size() * n + 4 * n + 4 * n   # r,k,v; w; o
-              + 4 * H * hd + 2 * 4 * B * H * hd * hd)   # u; s0, sT
-    b_ms, b_by = bound(nbytes, 5.0 * n * hd, "float32")
+    dev_ms = device_ms(lambda: rwkv_ops.rwkv6_scan_cuda(r, k, v, w, u, s0))
+    b_ms, b_by = rwkv_bound(r)
     print(f"time K5 rwkv6 {what} B={B} S={S} H={H} hd={hd} "
-          f"{str(r.dtype).split('.')[-1]}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}); "
-          f"max|err| {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+          f"{str(r.dtype).split('.')[-1]}: kernel {ms:.4f} ms (device "
+          f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, library none, bound "
+          f"{b_ms:.5f} ms ({b_by}); max|err| {err:.3g}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err}
 
 
 def rwkv_path(torch, errs):
@@ -905,7 +949,8 @@ def rwkv_path(torch, errs):
     gc.collect()
     torch.cuda.empty_cache()
     return [kernel_row("rwkv6_scan", launches["rwkv6_scan"], err, t,
-                       path="rwkv6-1.6b", full_ms=full["ms"])]
+                       path="rwkv6-1.6b", full_ms=full["ms"],
+                       full_device_ms=full["device_ms"])]
 
 
 def recurrentgemma_path(torch, errs):
@@ -960,7 +1005,8 @@ def recurrentgemma_path(torch, errs):
               gate_err("K2", full.pop("max_abs_err"), torch.bfloat16))
     rows.append(kernel_row("flash_attention", launches["flash_attention"],
                            err, t, path="recurrentgemma-9b",
-                           full_ms=full["ms"]))
+                           full_ms=full["ms"],
+                           full_device_ms=full["device_ms"]))
     d_args, _ = most_work(calls["decode_attention"],
                           lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
     t = time_decode(torch, dec_ops, *d_args)
@@ -972,7 +1018,8 @@ def recurrentgemma_path(torch, errs):
               gate_err("K1", full.pop("max_abs_err"), torch.bfloat16))
     rows.append(kernel_row("decode_attention", launches["decode_attention"],
                            err, t, path="recurrentgemma-9b",
-                           full_ms=full["ms"]))
+                           full_ms=full["ms"],
+                           full_device_ms=full["device_ms"]))
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1209,16 +1256,19 @@ def time_topk(torch, topk_ops, what, q, c, k, iters=20, plain_rows=None):
     plain_ms = cuda_time_ms(lambda: topk_ops.similarity_topk(
         qp, c, k, impl="reference"), max(iters // 4, 3), warmup=1)
     lib_ms = cuda_time_ms(lambda: torch.topk(q @ c.T, k), iters)
+    dev_ms = device_ms(lambda: topk_ops.similarity_topk_cuda(q, c, k),
+                       min(iters, 20))
     b = topk_bounds(Q, N, D, k)
     cut = f" (plain on the first {qp.shape[0]} queries)" if plain_rows else ""
     print(f"time K3 {what} Q={Q} N={N} D={D} k={k} fp32: kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms{cut}, torch.topk(q@c.T) "
+          f"ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms{cut}, "
+          "torch.topk(q@c.T) "
           f"{lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']}"
           f", 3xTF32), fp32 FMA bound {b['fp32_fma_bound_ms']:.5f} ms "
           f"({b['fp32_fma_bound_by']}); max|err| {err:.3g}, {flips} flips "
           "within margin")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b,
-            "max_abs_err": err}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **b, "max_abs_err": err}
 
 
 def topk_full_shapes(torch, topk_ops, dev):
@@ -1331,13 +1381,17 @@ def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200):
         q, kc, vc, lengths, impl="reference"), max(iters // 10, 5))
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+    dev_ms = device_ms(lambda: dec_ops.decode_attention_cuda(
+        q, kc, vc, lengths))
     b_ms, b_by = decode_bound(q, kc, lengths)
     print(f"time K1 decode B={B} H={H} KV={kc.shape[2]} hd={hd} Smax={Smax} "
           f"lengths={lengths.tolist()} {str(q.dtype).split('.')[-1]}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-          f"ms, bound {b_ms:.5f} ms ({b_by}); max|err| {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+          f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}); max|err| {err:.3g}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "max_abs_err": err}
 
 
 def time_flash(torch, flash_ops, q, k, v, causal=True, window=0, iters=50):
@@ -1362,14 +1416,17 @@ def time_flash(torch, flash_ops, q, k, v, causal=True, window=0, iters=50):
         max(iters // 5, 5))
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+    dev_ms = device_ms(lambda: flash_ops.flash_attention_cuda(
+        q, k, v, causal=causal, window=window))
     b_ms, b_by = flash_bound(q, k, causal, window)
     print(f"time K2 flash B={B} Sq={Sq} Skv={Skv} H={H} KV={k.shape[2]} "
           f"hd={hd} causal={causal} window={window} "
-          f"{str(q.dtype).split('.')[-1]}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}); max|err| {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+          f"{str(q.dtype).split('.')[-1]}: kernel {ms:.4f} ms (device "
+          f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms, bound {b_ms:.5f} ms ({b_by}); max|err| {err:.3g}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "max_abs_err": err}
 
 
 def long_shapes(torch, dec_ops, flash_ops, dev):

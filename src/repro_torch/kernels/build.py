@@ -114,17 +114,9 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    """Raise unless ``t`` has ``dtype``, a contiguous last dim and 16-byte
-    aligned rows (the kernels load rows with 16-byte vector loads)."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name}: last dim must be contiguous")
-    align = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(s % align for s in t.stride()[:-1]):
-        raise ValueError(f"{name}: needs 16-byte aligned rows")
-
-
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an int, without building a
+    ``torch.cuda.Stream`` (the served launches are bound by the host)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -630,24 +630,6 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   return true;
 }
 
-// The current device's SM count, asked of the runtime once per device.
-cudaError_t sm_count(int* sms) {
-  constexpr int DEVICES = 64;
-  static int counts[DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= DEVICES)
-    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (counts[dev] == 0) {
-    err = cudaDeviceGetAttribute(&counts[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = counts[dev];
-  return cudaSuccess;
-}
-
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int KV, int Sq, int Skv,

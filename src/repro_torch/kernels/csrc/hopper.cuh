@@ -1,4 +1,4 @@
-// Hopper building blocks shared by the kernels that use them (K2, K3):
+// Hopper building blocks shared by the kernels that use them (K1-K3, K5):
 // mbarriers, TMA loads, wgmma descriptors and fences, and the tensor-map
 // encoder, looked up at run time through cudaGetDriverEntryPoint so that
 // nothing links libcuda.  Device code for sm_90a.
@@ -163,6 +163,24 @@ inline cudaError_t allow_smem(const void* kern, int bytes) {
       kerns[i] = kern;
       break;
     }
+  return cudaSuccess;
+}
+
+// The current device's SM count, asked of the runtime once per device.
+inline cudaError_t sm_count(int* sms) {
+  constexpr int DEVICES = 64;
+  static int counts[DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= DEVICES)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = counts[dev];
   return cudaSuccess;
 }
 

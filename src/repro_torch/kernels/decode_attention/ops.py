@@ -9,6 +9,7 @@ comparisons of the kernel against it pass that.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -21,10 +22,13 @@ LIB = build.CudaLibrary("decode_attention.cu", {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_char_p, ctypes.c_float, ctypes.c_void_p],
 })
+_pack_strides = struct.Struct("10q").pack   # the entry point's strides[10]
 HEAD_DIMS = (64, 128, 256)
-GROUPS = (1, 2, 4, 8, 16)
+GROUPS = range(1, 17)        # q heads a kv head: one block holds them all
+# returned by the entry point where the kernel cannot take an input
+ERR_UNSUPPORTED = -1
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
@@ -34,38 +38,47 @@ LAUNCHES = 0
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                           return_lse: bool = False):
     """Launch the kernel.  q: [B,1,H,hd]; k_cache,v_cache: [B,Smax,KV,hd]
-    (model layout, read through strides); lengths: int32 [B].
+    (model layout, read through strides); lengths: int [B].
     Returns out [B,1,H,hd] (and lse [B,H,1] fp32)."""
     global LAUNCHES
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    if q.dtype not in build.DTYPE_CODE:
+    code = build.DTYPE_CODE.get(q.dtype)
+    if code is None:
         raise TypeError(f"decode attention takes bf16 or fp32, not {q.dtype}")
-    if hd not in HEAD_DIMS or H % KV or H // KV not in GROUPS:
-        raise ValueError(f"decode attention kernel takes hd in {HEAD_DIMS} "
-                         f"and H/KV in {GROUPS}; got hd={hd}, H={H}, KV={KV}")
     if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
-            or k_cache.shape[3] != hd):
+            or k_cache.shape[3] != hd or H % KV):
         raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        build.check_operand(name, t, q.dtype)
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    # Head dim, group size and 16-byte row alignment are checked by the
+    # entry point, which returns ERR_UNSUPPORTED.
+    if k_cache.device != q.device or v_cache.device != q.device:
+        raise ValueError(f"caches on {k_cache.device} / {v_cache.device}, "
+                         f"q on {q.device}")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"caches of {k_cache.dtype} / {v_cache.dtype}, q "
+                        f"of {q.dtype}")
+    if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
+        raise ValueError("q, k_cache and v_cache need a contiguous last dim")
+    if not (lengths.dtype == torch.int32 and lengths.device == q.device
+            and lengths.is_contiguous()):
+        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    strides = (ctypes.c_longlong * 10)(
-        q.stride(0), q.stride(2), *k_cache.stride()[:3],
-        *v_cache.stride()[:3], out.stride(0), out.stride(2))
+    strides = _pack_strides(q.stride(0), q.stride(2), *k_cache.stride()[:3],
+                            *v_cache.stride()[:3], out.stride(0),
+                            out.stride(2))
     err = LIB.load().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        build.DTYPE_CODE[q.dtype], B, H, KV, Smax, hd, strides, hd ** -0.5,
-        build.stream_ptr(q.device))
+        lse.data_ptr() if lse is not None else None, code, B, H, KV, Smax,
+        hd, strides, hd ** -0.5, build.stream_ptr(q.device))
+    if err == ERR_UNSUPPORTED:
+        raise ValueError(f"decode attention kernel takes hd in {HEAD_DIMS}, "
+                         f"H/KV in {GROUPS.start}..{GROUPS.stop - 1} and "
+                         f"16-byte aligned rows; got hd={hd}, H={H}, KV={KV}")
     build.check(err, "decode_attention")
     LAUNCHES += 1
     return (out, lse) if return_lse else out

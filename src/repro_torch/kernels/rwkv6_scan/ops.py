@@ -9,7 +9,9 @@ device; only comparisons of the kernel against it pass that.
 The kernel reads r, k and v in their own type (bf16 or fp32, one type
 for the three: the served model hands them over in bf16) and w, u and the
 state in fp32: the wrapper casts w, u and s0 to fp32 where they are not
-(the served model's w already is).
+(the served model's w already is).  Sequences of 32 steps or more take the
+kernel's chunked path (dense products within each chunk of 32 steps),
+shorter ones (the decode steps) its step path.
 """
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ def rwkv6_scan_cuda(r, k, v, w, u, s0):
             raise TypeError(f"{name}: dtype {t.dtype}, r is {r.dtype}")
     r, k, v = (t.contiguous() for t in (r, k, v))
     w, u, s0 = (t.to(torch.float32).contiguous() for t in (w, u, s0))
+    if s0.data_ptr() % 16:             # the kernel reads S in 16-byte rows
+        s0 = s0.clone()
     o = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     err = LIB.load().repro_rwkv6_scan(

@@ -55,7 +55,7 @@ def _randn(seed, shapes, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8, 16])
 def test_decode_kernel(cuda, dtype, hd, G):
     B, Smax, KV = 5, 300, 2
     H = KV * G
@@ -90,11 +90,61 @@ def test_decode_kernel_reads_strided_cache(cuda):
                                **TOL[torch.bfloat16])
 
 
+def _decode_case(seed, B, Smax, H, KV, hd, lengths, dtype, device):
+    """K1 against its plain version (out and lse) on skewed lengths, and
+    against itself: a second launch gives the same bits.  A row of length
+    0 gives 0 and lse -1e30 (the TPU kernel's finalisation), where the
+    plain version's lse is -inf."""
+    q, kc, vc = _randn(seed, [(B, 1, H, hd), (B, Smax, KV, hd),
+                              (B, Smax, KV, hd)], dtype, device)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    before = dec_ops.LAUNCHES
+    out, lse = dec_ops.flash_decode(q, kc, vc, lengths, return_lse=True)
+    again, lse2 = dec_ops.flash_decode(q, kc, vc, lengths, return_lse=True)
+    ref, ref_lse = dec_ops.flash_decode(q, kc, vc, lengths,
+                                        impl="reference", return_lse=True)
+    torch.cuda.synchronize()
+    assert dec_ops.LAUNCHES == before + 2
+    assert torch.equal(again, out) and torch.equal(lse2, lse)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    empty = (lengths == 0)[:, None, None].expand_as(lse)
+    assert bool((lse[empty] == -1e30).all())
+    assert bool((out[lengths == 0] == 0).all())
+    torch.testing.assert_close(lse[~empty], ref_lse[~empty],
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(64, 3), (128, 7), (256, 16), (128, 1)])
+def test_decode_kernel_skewed_lengths(cuda, dtype, hd, G):
+    """Lengths 0 and Smax in one batch with short and long rows between:
+    the splits of a short row past its length read nothing."""
+    KV, Smax = 2, 1000
+    _decode_case(31, 6, Smax, KV * G, KV, hd, [0, 1000, 3, 999, 64, 517],
+                 dtype, cuda)
+
+
+@pytest.mark.parametrize("Smax", [64, 65, 256, 257, 2048])
+def test_decode_kernel_split_boundaries(cuda, Smax):
+    """recurrentgemma's shape (16 q heads on one kv head, hd 256, B = 8),
+    where the cache splits over up to 8 blocks of a cluster: cache lengths
+    at and past a tile and a split's keys, row lengths on both sides of
+    the split edges."""
+    lengths = [min(n, Smax) for n in (0, 1, 63, 64, 65, 255, 257, Smax)]
+    _decode_case(32, 8, Smax, 16, 1, 256, lengths, torch.bfloat16, cuda)
+
+
 def test_kernels_reject_unsupported(cuda):
     q, kc, vc = _randn(13, [(2, 1, 4, 32), (2, 16, 2, 32), (2, 16, 2, 32)],
                        torch.float32, cuda)
     with pytest.raises(ValueError):
         dec_ops.flash_decode(q, kc, vc, torch.tensor([1, 2], device=cuda))
+    q, kc, vc = _randn(13, [(2, 1, 17, 64), (2, 16, 1, 64), (2, 16, 1, 64)],
+                       torch.bfloat16, cuda)
+    before = dec_ops.LAUNCHES
+    with pytest.raises(ValueError):                       # G = 17
+        dec_ops.flash_decode(q, kc, vc, torch.tensor([1, 2], device=cuda))
+    assert dec_ops.LAUNCHES == before
     with pytest.raises(TypeError):
         flash_ops.flash_attention(q.half(), kc.half(), vc.half())
 
@@ -275,7 +325,7 @@ def _close_rel(x, ref, tol=2e-4):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,hd", [(3, 37, 5, 64), (8, 384, 32, 64),
                                       (2, 19, 3, 16), (1, 1, 32, 64),
-                                      (2, 20, 7, 16)])
+                                      (2, 20, 7, 16), (2, 45, 3, 16)])
 def test_rwkv6_kernel(cuda, dtype, B, S, H, hd):
     args = _rwkv(24, B, S, H, hd, dtype, cuda)
     before = rwkv_ops.LAUNCHES
@@ -288,6 +338,51 @@ def test_rwkv6_kernel(cuda, dtype, B, S, H, hd):
     _close_rel(sT, ref_sT)
     again = rwkv_ops.rwkv6_scan(*args)
     assert torch.equal(again[0], o) and torch.equal(again[1], sT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 37, 384, 385])
+def test_rwkv6_kernel_underflowing_decays(cuda, dtype, S):
+    """Decays made as the model makes them, w = exp(-exp(x)), with x up to
+    5 so that some underflow to 0, and pad steps (w = 1, k = 0) at the
+    end of one row: within 2e-4 of the largest plain value, finite, the
+    pad steps leave the state as it was, and a second launch gives the
+    same bits."""
+    B, H, hd = 3, 4, 64
+    r, k, v, _, u, s0 = _rwkv(27, B, S, H, hd, dtype, cuda)
+    x, = _randn(28, [(B, S, H, hd)], torch.float32, cuda)
+    w = torch.exp(-torch.exp(x.clamp(-6, 3) + 2 * (x > 1.5)))
+    assert bool((w == 0).any()) or S == 1
+    pad = max(1, S // 4)
+    w[1, S - pad:] = 1.0
+    k[1, S - pad:] = 0
+    o, sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+    again = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+    ref_o, ref_sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0, impl="reference")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(sT).all())
+    _close_rel(o, ref_o)
+    _close_rel(sT, ref_sT)
+    assert torch.equal(again[0], o) and torch.equal(again[1], sT)
+    if S > pad:
+        _, s_cut = rwkv_ops.rwkv6_scan(r[:, :S - pad], k[:, :S - pad],
+                                       v[:, :S - pad], w[:, :S - pad], u, s0)
+        _close_rel(sT[1], s_cut[1])
+
+
+@pytest.mark.parametrize("S,cut", [(385, 192), (384, 31), (70, 33)])
+def test_rwkv6_kernel_chained_across_paths(cuda, S, cut):
+    """Two launches, the second from the first's state, equal one launch
+    over the whole sequence, where the halves take the chunked path, the
+    step path or one of each."""
+    r, k, v, w, u, s0 = _rwkv(29, 2, S, 4, 64, torch.bfloat16, cuda)
+    o, sT = rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)
+    o1, s1 = rwkv_ops.rwkv6_scan(r[:, :cut], k[:, :cut], v[:, :cut],
+                                 w[:, :cut], u, s0)
+    o2, s2 = rwkv_ops.rwkv6_scan(r[:, cut:], k[:, cut:], v[:, cut:],
+                                 w[:, cut:], u, s1)
+    _close_rel(torch.cat([o1, o2], 1), o)
+    _close_rel(s2, sT)
 
 
 def test_rwkv6_kernel_state_chaining(cuda):

@@ -3,16 +3,17 @@
 commit's build and this tree's, at the shapes ``chip_smoke.py`` times.
 
     mkdir -p OLD && git archive <parent> src/repro_torch | tar -x -C OLD
-    python3 tools/kernel_ab.py --old OLD [--kernels similarity_topk]
+    python3 tools/kernel_ab.py --old OLD [--kernels decode_attention ...]
 
 ``--old`` is a directory holding the parent's ``src/repro_torch`` (keep it
 out of git's view, in a directory ``.gitignore`` lists): its
-``ops.py`` wrappers are loaded under another name and bound to a library
-built from its own ``csrc/*.cu`` (the same nvcc flags), so the two
-versions share inputs, card and clocks.  Each shape is timed in ROUNDS
+``ops.py`` wrappers are loaded under another name over its own
+``build.py``, which builds its own ``csrc/*.cu``, so the two versions
+share inputs, card and clocks.  Each shape is timed in ROUNDS
 (4) rounds of turns, old, new, new, old, and each version's time is the
 mean of its turns; a served shape's launches are
-bound by the host, so each of its turns times 200 calls.  Every new result is first held to the plain version with
+bound by the host, so each of its turns times 200 calls (K1 at every
+shape, K5 but at the full shape).  Every new result is first held to the plain version with
 ``chip_smoke.py``'s gates; the old one is only timed.  Needs a CUDA card;
 imports nothing of JAX.  ``--out FILE`` also writes the rows as JSON.
 """
@@ -43,27 +44,45 @@ FLASH_SHAPES = [("proxy-8b served", 6, 128, 32, 8, 128, 0),
                 ("hd 128 full", 8, 384, 32, 8, 128, 0),
                 ("recurrentgemma served", 8, 128, 16, 1, 256, 2048),
                 ("hd 256 full", 8, 384, 16, 1, 256, 2048)]
+# (what, B, H, KV, hd, Smax, lengths): the served decode step with the most
+# keys (chip_smoke.py's batch: proxy-8b's gathered cache of 32-token
+# blocks, recurrentgemma's 2,048-slot ring), then the full caches
+DECODE_SHAPES = [("proxy-8b served", 8, 32, 8, 128, 128,
+                  (108, 78, 79, 64, 1, 1, 1, 1)),
+                 ("hd 128 full", 8, 32, 8, 128, 512, (512,) * 8),
+                 ("recurrentgemma served", 4, 16, 1, 256, 2048,
+                  (109, 78, 79, 64)),
+                 ("hd 256 full", 8, 16, 1, 256, 2048, (2048,) * 8)]
+# (what, B, S, H, hd): rwkv6-1.6b's largest served pass, the full shape and
+# a served decode step (the 4 COMPLETE rows)
+RWKV_SHAPES = [("served", 8, 128, 32, 64), ("full", 8, 384, 32, 64),
+               ("decode step", 4, 1, 32, 64)]
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_old(old_root: Path, name: str):
-    """The parent's ``kernels/<name>/ops.py``, bound to its own source."""
-    from repro_torch.kernels import build
+    """The parent's ``kernels/<name>/ops.py`` with the parent's
+    ``kernels/build.py`` under it, so that it binds its own source with
+    its own helpers (its library builds into the parent tree's
+    ``_build/``)."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels import build as new_build
     pkg = old_root / "src" / "repro_torch" / "kernels"
-    spec = importlib.util.spec_from_file_location(
-        f"old_{name}_ops", pkg / name / "ops.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.LIB = build.CudaLibrary((pkg / "csrc" / f"{name}.cu").resolve(),
-                                mod.LIB.signatures)
-    return mod
+    kernels.build = _module(pkg / "build.py", "old_kernels_build")
+    try:
+        return _module(pkg / name / "ops.py", f"old_{name}_ops")
+    finally:
+        kernels.build = new_build
 
 
 def fmt(times):
     return ", ".join(f"{x:.4f}" for x in times)
-
-
-def fmt_ms(x):
-    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 ROUNDS = 4
@@ -77,21 +96,6 @@ def turns(old_fn, new_fn, iters):
     old = [x for i, x in enumerate(t) if i % 4 in (0, 3)]
     new = [x for i, x in enumerate(t) if i % 4 in (1, 2)]
     return sum(old) / len(old), sum(new) / len(new), t
-
-
-def device_ms(torch, fn, iters=20):
-    """The kernels' own time per call from the profiler (device time of
-    every kernel fn launches, summed): where a call is short, the events
-    of ``cuda_time_ms`` time the host's launches instead."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / iters if us else None
 
 
 def ab_topk(torch, old, new, dev):
@@ -111,8 +115,8 @@ def ab_topk(torch, old, new, dev):
             lambda: old.similarity_topk_cuda(q, c, k),
             lambda: new.similarity_topk_cuda(q, c, k), iters)
         lib_ms = smoke.cuda_time_ms(lambda: torch.topk(q @ c.T, k), iters)
-        dev_old = device_ms(torch, lambda: old.similarity_topk_cuda(q, c, k))
-        dev_new = device_ms(torch, lambda: new.similarity_topk_cuda(q, c, k))
+        dev_old = smoke.device_ms(lambda: old.similarity_topk_cuda(q, c, k))
+        dev_new = smoke.device_ms(lambda: new.similarity_topk_cuda(q, c, k))
         b = smoke.topk_bounds(Q, N, D, k)
         print(f"ab K3 {what} Q={Q} N={N} D={D} k={k}: old {old_ms:.4f} ms, "
               f"new {new_ms:.4f} ms (turns {fmt(raw)}), torch.topk(q@c.T) "
@@ -120,7 +124,7 @@ def ab_topk(torch, old, new, dev):
               f"({b['bound_by']}, 3xTF32), fp32 FMA bound "
               f"{b['fp32_fma_bound_ms']:.5f} ms; max|err| {err:.3g}, "
               f"{flips} flips within margin; device time old "
-              f"{fmt_ms(dev_old)}, new {fmt_ms(dev_new)}")
+              f"{smoke.fmt_ms(dev_old)}, new {smoke.fmt_ms(dev_new)}")
         rows.append({"kernel": "similarity_topk", "shape": what, "Q": Q,
                      "N": N, "D": D, "k": k, "old_ms": old_ms,
                      "new_ms": new_ms, "turns_ms": raw, "library_ms": lib_ms,
@@ -157,16 +161,16 @@ def ab_flash(torch, old, new, dev):
         lib_ms = smoke.cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), 50)
         b_ms, b_by = smoke.flash_bound(q, k, True, window)
-        dev_old = device_ms(torch, lambda: old.flash_attention_cuda(
+        dev_old = smoke.device_ms(lambda: old.flash_attention_cuda(
             q, k, v, window=window))
-        dev_new = device_ms(torch, lambda: new.flash_attention_cuda(
+        dev_new = smoke.device_ms(lambda: new.flash_attention_cuda(
             q, k, v, window=window))
         print(f"ab K2 {what} B={B} S={S} H={H} KV={KV} hd={hd} "
               f"window={window}: old {old_ms:.4f} ms, new {new_ms:.4f} ms "
               f"(turns {fmt(raw)}), sdpa "
               f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); max|err| "
-              f"{err:.3g}; device time old {fmt_ms(dev_old)}, new "
-              f"{fmt_ms(dev_new)}")
+              f"{err:.3g}; device time old {smoke.fmt_ms(dev_old)}, new "
+              f"{smoke.fmt_ms(dev_new)}")
         rows.append({"kernel": "flash_attention", "shape": what, "B": B,
                      "S": S, "H": H, "KV": KV, "hd": hd, "window": window,
                      "old_ms": old_ms, "new_ms": new_ms, "turns_ms": raw,
@@ -176,14 +180,98 @@ def ab_flash(torch, old, new, dev):
     return rows
 
 
+def ab_decode(torch, old, new, dev):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 7)
+    rows = []
+    for what, B, H, KV, hd, Smax, lens in DECODE_SHAPES:
+        q, kc, vc = (torch.randn(s, generator=gen, device=dev).to(
+            torch.bfloat16) for s in ((B, 1, H, hd), (B, Smax, KV, hd),
+                                      (B, Smax, KV, hd)))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = new.decode_attention_cuda(q, kc, vc, lengths)
+        ref = new.flash_decode(q, kc, vc, lengths, impl="reference")
+        torch.cuda.synchronize()
+        err = smoke.max_err(out, ref)
+        if not err <= smoke.TOL["bfloat16"]:
+            smoke.fail(f"K1 {what}: max|err| {err} against plain")
+        old_ms, new_ms, raw = turns(
+            lambda: old.decode_attention_cuda(q, kc, vc, lengths),
+            lambda: new.decode_attention_cuda(q, kc, vc, lengths), 200)
+        mask = (torch.arange(Smax, device=dev)[None]
+                < lengths[:, None])[:, None, None]
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_ms = smoke.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+        b_ms, b_by = smoke.decode_bound(q, kc, lengths)
+        dev_old = smoke.device_ms(lambda: old.decode_attention_cuda(
+            q, kc, vc, lengths))
+        dev_new = smoke.device_ms(lambda: new.decode_attention_cuda(
+            q, kc, vc, lengths))
+        print(f"ab K1 {what} B={B} H={H} KV={KV} hd={hd} Smax={Smax}: old "
+              f"{old_ms:.4f} ms, new {new_ms:.4f} ms (turns {fmt(raw)}), "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); max|err| "
+              f"{err:.3g}; device time old {smoke.fmt_ms(dev_old)}, new "
+              f"{smoke.fmt_ms(dev_new)}")
+        rows.append({"kernel": "decode_attention", "shape": what, "B": B,
+                     "H": H, "KV": KV, "hd": hd, "Smax": Smax,
+                     "lengths": list(lens), "old_ms": old_ms,
+                     "new_ms": new_ms, "turns_ms": raw,
+                     "old_device_ms": dev_old, "new_device_ms": dev_new,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": err})
+    return rows
+
+
+def ab_rwkv(torch, old, new, dev):
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 8)
+    rows = []
+    for what, B, S, H, hd in RWKV_SHAPES:
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        w = smoke.decays(torch, gen, (B, S, H, hd), dev)
+        u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+        s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        o, sT = new.rwkv6_scan_cuda(r, k, v, w, u, s0)
+        ref_o, ref_sT = new.rwkv6_scan(r, k, v, w, u, s0, impl="reference")
+        torch.cuda.synchronize()
+        err = max(smoke.rel_err(o, ref_o), smoke.rel_err(sT, ref_sT))
+        if not err <= smoke.TOL["float32"]:
+            smoke.fail(f"K5 {what}: relative error {err} against plain")
+        old_ms, new_ms, raw = turns(
+            lambda: old.rwkv6_scan_cuda(r, k, v, w, u, s0),
+            lambda: new.rwkv6_scan_cuda(r, k, v, w, u, s0),
+            50 if what == "full" else 200)
+        b_ms, b_by = smoke.rwkv_bound(r)
+        dev_old = smoke.device_ms(lambda: old.rwkv6_scan_cuda(
+            r, k, v, w, u, s0))
+        dev_new = smoke.device_ms(lambda: new.rwkv6_scan_cuda(
+            r, k, v, w, u, s0))
+        print(f"ab K5 {what} B={B} S={S} H={H} hd={hd}: old {old_ms:.4f} "
+              f"ms, new {new_ms:.4f} ms (turns {fmt(raw)}), library none, "
+              f"bound {b_ms:.5f} ms ({b_by}); rel. max|err| {err:.3g}; "
+              f"device time old {smoke.fmt_ms(dev_old)}, new "
+              f"{smoke.fmt_ms(dev_new)}")
+        rows.append({"kernel": "rwkv6_scan", "shape": what, "B": B, "S": S,
+                     "H": H, "hd": hd, "old_ms": old_ms, "new_ms": new_ms,
+                     "turns_ms": raw, "old_device_ms": dev_old,
+                     "new_device_ms": dev_new, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "rel_err": err})
+    return rows
+
+
+AB = {"similarity_topk": ab_topk, "flash_attention": ab_flash,
+      "decode_attention": ab_decode, "rwkv6_scan": ab_rwkv}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, required=True,
                     help="directory holding the parent's src/repro_torch")
     ap.add_argument("--out", type=Path, help="write the rows here (JSON)")
-    ap.add_argument("--kernels", nargs="+",
-                    default=["similarity_topk", "flash_attention"],
-                    choices=["similarity_topk", "flash_attention"])
+    ap.add_argument("--kernels", nargs="+", default=list(AB), choices=AB)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -193,17 +281,14 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.similarity_topk import ops as topk_ops
-    new = {"similarity_topk": topk_ops, "flash_attention": flash_ops}
+    new = {n: importlib.import_module(f"repro_torch.kernels.{n}.ops")
+           for n in args.kernels}
     old = {n: load_old(args.old, n) for n in args.kernels}
     libs = [m.LIB for n in args.kernels for m in (old[n], new[n])]
     smoke.build_kernels(*[types.SimpleNamespace(LIB=lib) for lib in libs])
     rows = []
-    if "similarity_topk" in args.kernels:
-        rows += ab_topk(torch, old["similarity_topk"], topk_ops, dev)
-    if "flash_attention" in args.kernels:
-        rows += ab_flash(torch, old["flash_attention"], flash_ops, dev)
+    for n in args.kernels:
+        rows += AB[n](torch, old[n], new[n], dev)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "rows": rows},
