@@ -18,7 +18,14 @@ the plain attention, then drives the semantic index over the same engine
 (CortexClient -> RequestPipeline -> Scheduler -> EMBED ->
 SemanticIndexManager -> IvfFlatIndex -> the similarity top-k kernel) and
 holds its searches to a plain-path manager over the same store.  Then it
-serves the same mix with rwkv6-1.6b (24 RWKV-6 blocks, d_model 2048, every
+builds oracle-70b at full width (its depth cut to 20 of 80 layers) beside
+proxy-8b and runs five AISQL queries through ``AisqlEngine.sql`` over the
+cascade pair and the index (AI_FILTER with cascades, AI_CLASSIFY with
+GROUP BY, AI_COMPLETE with LIMIT, a semantic join rewritten to
+classification, ORDER BY AI_SIMILARITY ... LIMIT), with K1, K2 and K3 in
+the loop, and again through their plain versions, gating on the tables,
+the meters and the rows of both runs.  Then it serves the same mix with
+rwkv6-1.6b (24 RWKV-6 blocks, d_model 2048, every
 wkv scan through K5) and recurrentgemma-9b (38 RG-LRU and local-attention
 layers, d_model 4096, vocab 256000: RG-LRU scans through K4, the
 sliding-window attention through K2 and K1 at head dim 256), both at full
@@ -61,6 +68,19 @@ SERVE_TOL = {
                           "score_logits_rel": 0.08,
                           "classify_logprob": 0.05, "embed_cosine": 0.9995},
 }
+# AISQL phase, kernel path vs plain path (PERF.md, section 6): a cascade
+# row may be kept by one path only if a plain SCORE of it lies within
+# AISQL_SCORE_TOL of the threshold it was held to.  SCORE runs the
+# continuous batcher's chunked prefill, which launches no kernel, and the
+# card read no SCORE difference between the paths, so the band is 0.  A
+# CLASSIFY label may differ only where the plain path's logprob margin to
+# the decision is within AISQL_LOGPROB_TOL, a few times the largest
+# kernel-vs-plain label logprob difference the card read (0.0306 nats)
+AISQL_SCORE_TOL = 0.0
+AISQL_LOGPROB_TOL = 0.1
+# oracle-70b's depth on the card: all 80 layers hold 141 GB of bf16; 20
+# hold 38.4 GB beside proxy-8b's 16.1 GB
+ORACLE_LAYERS = 20
 # K3 (similarity top-k, fp32): values within TOPK_TOL of the plain
 # version; ids equal except between rows whose plain scores lie within
 # TOPK_TOL of each other (fp32 sums in another order); on sign vectors,
@@ -1226,6 +1246,434 @@ def index_path(torch, eng, errs):
                       t)
 
 
+# ---------------------------------------------------------------------------
+# AISQL: the SQL layer on the card over the cascade pair and the index
+# ---------------------------------------------------------------------------
+
+
+def aisql_catalog():
+    """256 IMDB-style reviews (the cascade), 64 NYT-style articles
+    (CLASSIFY, COMPLETE, the index) and an AG-News-style join pair cut to
+    96 articles and 4 topics, so that the rewrite's CLASSIFY calls stay
+    near a hundred and each call's 4 label continuations fit the card's
+    logits beside both models' weights.  Returns the catalog and the join
+    predicate's prompt."""
+    from repro_torch.core import Catalog
+    from repro_torch.data import datasets as D
+    spec = dataclasses.replace(D.JOIN_DATASETS["AGNEWS_100"],
+                               name="AGNEWS_4", left_rows=96, right_rows=4)
+    left, right, _ = D.join_tables(spec=spec)
+    cat = Catalog({"reviews": D.cascade_table("IMDB", rows=256),
+                   "articles": D.nyt_articles(64), "l": left, "r": right})
+    return cat, D.JOIN_PROMPTS["AGNEWS_100"]
+
+
+def aisql_queries(join_prompt):
+    return [
+        ("filter_cascade",
+         "SELECT r.id, r.text FROM reviews AS r WHERE "
+         "AI_FILTER(PROMPT('Is this review positive? {0}', r.text))"),
+        ("classify_groupby",
+         "SELECT AI_CLASSIFY(PROMPT('Which section does this article "
+         "belong to? {0}', a.body), ['politics','business','technology',"
+         "'sports']) AS section, COUNT(*) AS n FROM articles AS a "
+         "GROUP BY section"),
+        ("complete_limit",
+         "SELECT a.id, AI_COMPLETE(PROMPT('Summarize: {0}', a.body), "
+         "max_tokens => 8) AS summary FROM articles AS a LIMIT 4"),
+        ("semantic_join",
+         "SELECT l.id, r.label FROM l JOIN r ON "
+         f"AI_FILTER(PROMPT('{join_prompt}', l.content, r.label))"),
+        ("similarity_topk",
+         "SELECT a.id FROM articles AS a ORDER BY "
+         "AI_SIMILARITY(a.body, 'database query engines') DESC LIMIT 10"),
+    ]
+
+
+class EngineTap:
+    """Wraps each engine's ``submit_batch``: times every call and keeps
+    each result by (model, kind, prompt); the oracle's
+    ``_sequence_logprob`` keeps each label continuation's logprob."""
+
+    def __init__(self, engines, oracle):
+        self.engines, self.oracle = engines, oracle
+        self.results, self.logprobs = {}, {}
+        self.seconds = 0.0
+
+    def __enter__(self):
+        for e in self.engines:
+            real = e.submit_batch
+
+            def tapped(reqs, real=real):
+                t = time.perf_counter()
+                out = real(reqs)
+                self.seconds += time.perf_counter() - t
+                for r, res in zip(reqs, out):
+                    self.results[(res.model, r.kind, r.prompt)] = res
+                return out
+            e.submit_batch = tapped
+        real_lp = self.oracle._sequence_logprob
+
+        def lp(prompts, conts):
+            out = real_lp(prompts, conts)
+            self.logprobs.update(zip(zip(prompts, conts), out[0]))
+            return out
+        self.oracle._sequence_logprob = lp
+        return self
+
+    def __exit__(self, *exc):
+        for e in self.engines:
+            e.__dict__.pop("submit_batch", None)
+        self.oracle.__dict__.pop("_sequence_logprob", None)
+
+
+def most_work_recorder(work):
+    """A Spy recorder keeping only the launch with the most
+    ``work(args)`` (the first among equals) in ``best[0]``."""
+    best = [None, -1]
+
+    def record(args, kw, out):
+        w = work(args)
+        if w > best[1]:
+            best[0], best[1] = (args, kw), w
+    return best, record
+
+
+def aisql_run(torch, engines, oracle, impl):
+    """The five queries through a fresh client, index manager and
+    ``AisqlEngine`` over ``engines``, every kernel at ``impl`` ("auto":
+    the kernels; "reference": their plain versions).  Returns one record
+    per query, with what the engines returned for it."""
+    from repro_torch.core import (AisqlEngine, CascadeConfig, ExecConfig,
+                                  SemanticIndexManager, SemIndexConfig)
+    from repro_torch.inference.api import CortexClient
+    from repro_torch.inference.pipeline import PipelineConfig
+    from repro_torch.inference.scheduler import Scheduler
+    catalog, join_prompt = aisql_catalog()
+    sched = Scheduler()
+    for e in engines:
+        sched.register(e)
+    # EMBED goes to proxy-8b, the hosted model (no embedder is served)
+    client = CortexClient(sched, default_model="oracle-70b",
+                          proxy_model="proxy-8b", embed_model="proxy-8b",
+                          pipeline=PipelineConfig())
+    mgr = SemanticIndexManager(SemIndexConfig(impl=impl))
+    eng = AisqlEngine(catalog, client, semindex=mgr,
+                      executor=ExecConfig(use_cascade=True,
+                                          cascade=CascadeConfig(seed=SEED)))
+    records = []
+    for e in engines:
+        e._batcher.decode_impl = impl
+    try:
+        with kernel_impls(impl), EngineTap(engines, oracle) as tap:
+            for name, sql in aisql_queries(join_prompt):
+                calls0, credits0 = client.ai_calls, client.ai_credits
+                by_model0 = dict(client.calls_by_model)
+                served0 = sum(e.total_credits for e in engines)
+                searches0 = mgr.snapshot()["index_searches"]
+                engine_s0 = tap.seconds
+                tap.results, tap.logprobs = {}, {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = eng.sql(sql)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rep = eng.last_report
+                cols = list(out.column_names)
+                rows = [tuple(_plain(out.column(c)[i]) for c in cols)
+                        for i in range(out.num_rows)]
+                records.append({
+                    "name": name, "cols": cols, "rows": rows, "wall": wall,
+                    "engine_s": tap.seconds - engine_s0,
+                    "ai_calls": rep.ai_calls, "credits": rep.ai_credits,
+                    "client_calls": client.ai_calls - calls0,
+                    "client_credits": client.ai_credits - credits0,
+                    "served_credits": sum(e.total_credits for e in engines)
+                    - served0,
+                    "by_model": {m: n - by_model0.get(m, 0) for m, n in
+                                 client.calls_by_model.items()
+                                 if n != by_model0.get(m, 0)},
+                    "searches": mgr.snapshot()["index_searches"] - searches0,
+                    "trace": list(rep.optimizer_trace),
+                    "reopt": list(rep.reoptimizations),
+                    "cascades": {k: c.stats for k, c in
+                                 eng.exec.cascades.items()},
+                    "results": tap.results, "logprobs": tap.logprobs})
+    finally:
+        for e in engines:
+            e._batcher.decode_impl = "auto"
+    return records
+
+
+def _plain(v):
+    return v.item() if hasattr(v, "item") else v
+
+
+def check_aisql_tables(rec, catalog_labels):
+    """Each query's table is well formed, and its report agrees with the
+    client's meter and with what the engines served."""
+    name, rows = rec["name"], rec["rows"]
+    if not (rec["ai_calls"] == rec["client_calls"] > 0
+            and abs(rec["credits"] - rec["client_credits"]) <= 1e-12
+            and math.isclose(rec["credits"], rec["served_credits"],
+                             rel_tol=1e-9)):
+        fail(f"aisql {name}: report {rec['ai_calls']} calls / "
+             f"{rec['credits']} credits, client {rec['client_calls']} / "
+             f"{rec['client_credits']}, engines {rec['served_credits']}")
+    ok = {
+        "filter_cascade": rec["cols"] == ["r.id", "r.text"]
+        and 0 <= len(rows) <= 256 and len({r[0] for r in rows}) == len(rows),
+        "classify_groupby": rec["cols"] == ["section", "n"]
+        and {r[0] for r in rows} <= {"politics", "business", "technology",
+                                     "sports"}
+        and sum(r[1] for r in rows) == 64,
+        "complete_limit": rec["cols"] == ["a.id", "summary"]
+        and len(rows) == 4 and all(isinstance(r[1], str) for r in rows),
+        "semantic_join": rec["cols"] == ["l.id", "r.label"]
+        and all(0 <= r[0] < 96 and r[1] in catalog_labels for r in rows),
+        "similarity_topk": rec["cols"] == ["a.id"] and len(rows) == 10
+        and len({r[0] for r in rows}) == 10
+        and all(0 <= r[0] < 64 for r in rows),
+    }[name]
+    if not ok:
+        fail(f"aisql {name}: malformed table {rec['cols']} {rows[:4]}")
+
+
+def filter_flips(k_rec, p_rec):
+    """The cascade query's rows that one path kept and the other did not,
+    each with its plain-path margin: the smallest distance of a plain
+    SCORE of the row to the threshold it was held to (0.5 for the
+    oracle's label, the cascade's learned taus for the proxy's score)."""
+    (stats,) = p_rec["cascades"].values()
+    kept_k, kept_p = set(k_rec["rows"]), set(p_rec["rows"])
+    flips = []
+    for row in sorted(kept_k ^ kept_p):
+        margins = []
+        for (model, kind, prompt), res in p_rec["results"].items():
+            if kind != "score" or row[1] not in prompt:
+                continue
+            taus = ((0.5,) if model == "oracle-70b"
+                    else (stats.tau_low, stats.tau_high))
+            margins += [abs(res.score - t) for t in taus]
+        flips.append((row[0], row in kept_k, min(margins)))
+    return flips
+
+
+def _shares(lp):
+    """ln of each label's softmax share of the mean logprobs ``lp``."""
+    top = max(lp.values())
+    z = math.log(sum(math.exp(v - top) for v in lp.values()))
+    return {lb: v - top - z for lb, v in lp.items()}
+
+
+def classify_flips(k_rec, p_rec, labels, multi):
+    """The CLASSIFY prompts whose chosen labels differ between the paths,
+    {prompt: (kernel labels, plain labels, margin)}, the margin being how
+    far the plain path's mean logprobs lie from the decision that would
+    explain the difference.  One label: the plain top label's logprob
+    over the kernel's choice.  Several (the engine keeps each label whose
+    softmax share reaches 1.5 / n, else the top one): for each label
+    chosen on one path only, |ln(share / threshold)|, or, where a path
+    fell back to its top label, the logprob gap to the plain top label if
+    smaller; the margin is the largest of these."""
+    thr = math.log(1.5 / max(len(labels), 2))
+    flips = {}
+    for key, res in p_rec["results"].items():
+        if key[1] != "classify":
+            continue
+        kres = k_rec["results"][key]
+        if (set(kres.labels) == set(res.labels) if multi
+                else kres.label == res.label):
+            continue
+        cont = key[2] + "\nanswer: "
+        lp = {lb: p_rec["logprobs"][(cont, lb)] for lb in labels}
+        top = max(lp, key=lp.get)
+        if not multi:
+            flips[key[2]] = (kres.labels, res.labels, lp[top] - lp[kres.label])
+            continue
+        k_lp = {lb: k_rec["logprobs"][(cont, lb)] for lb in labels}
+        fell_back = (max(_shares(lp).values()) < thr
+                     or max(_shares(k_lp).values()) < thr)
+        second = max(v for lb, v in lp.items() if lb != top)
+        margins = []
+        for lb in set(kres.labels) ^ set(res.labels):
+            m = abs(_shares(lp)[lb] - thr)
+            if fell_back:
+                m = min(m, lp[top] - (second if lb == top else lp[lb]))
+            margins.append(m)
+        flips[key[2]] = (kres.labels, res.labels, max(margins))
+    return flips
+
+
+def classify_table(rec, catalog):
+    """The table a CLASSIFY query's rows should give, rebuilt from the
+    labels the engines returned for it: the GROUP BY's counts, or the
+    join's (left id, label) pairs."""
+    got = [(prompt, res) for (_, kind, prompt), res in rec["results"].items()
+           if kind == "classify"]
+    if rec["name"] == "classify_groupby":
+        counts = {}
+        for _, res in got:
+            counts[res.label] = counts.get(res.label, 0) + 1
+        return sorted(counts.items()), sorted(rec["rows"])
+    left = catalog.table("l")
+    ids = {str(c): int(i) for i, c in zip(left.column("id"),
+                                          left.column("content"))}
+    pairs = {(ids[prompt.rsplit("\ninput: ", 1)[1]], lb)
+             for prompt, res in got for lb in res.labels}
+    return sorted(pairs), sorted(rec["rows"])
+
+
+def aisql_path(torch, eng, errs):
+    """Build oracle-70b at full width (depth cut), serve the five AISQL
+    queries through ``AisqlEngine.sql`` over proxy-8b (``eng``) and
+    oracle-70b with K1, K2 and K3 in the loop, then again through their
+    plain versions, and gate on both.  Returns the kernels-line rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.inference.engine import TorchInferenceEngine
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    full = get_config("oracle-70b")
+    cfg = dataclasses.replace(full, num_layers=ORACLE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    oracle = TorchInferenceEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(oracle.params))
+    print(f"engine: {oracle.arch} {cfg.num_layers} of {full.num_layers} "
+          f"layers d_model {cfg.d_model} heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} hd {cfg.head_dim} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab_size} {cfg.dtype}, {n_params / 1e9:.2f} B params, "
+          f"built in {time.perf_counter() - t0:.1f} s; depth cut to "
+          f"{ORACLE_LAYERS} of {full.num_layers} layers (all {full.num_layers}"
+          " hold 141 GB of bf16, more than the card holds beside proxy-8b)")
+    if (dataclasses.replace(cfg, num_layers=full.num_layers) != full
+            or oracle.backend != "continuous"):
+        fail("oracle-70b is not at full width on the continuous path")
+    warm = requests("oracle-70b")
+    oracle.submit_batch([warm[0], warm[8], warm[12], warm[-1]])  # warm-up
+    engines = [eng, oracle]
+    catalog, _ = aisql_catalog()      # the catalog each run rebuilds
+    labels = set(catalog.table("r").column("label").tolist())
+
+    k1_best, k1_rec = most_work_recorder(
+        lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
+    k2_best, k2_rec = most_work_recorder(lambda a: a[0].numel())
+    k3_best, k3_rec = most_work_recorder(
+        lambda a: a[0].shape[0] * a[1].shape[0])
+    for mod in (dec_ops, flash_ops, topk_ops):
+        mod.LAUNCHES = 0
+    with Spy(dec_ops, "decode_attention_cuda", k1_rec), \
+            Spy(flash_ops, "flash_attention_cuda", k2_rec), \
+            Spy(topk_ops, "similarity_topk_cuda", k3_rec):
+        k_recs = aisql_run(torch, engines, oracle, "auto")
+    launches = {"decode_attention": dec_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES,
+                "similarity_topk": topk_ops.LAUNCHES}
+    searches = sum(r["searches"] for r in k_recs)
+    for rec in k_recs:
+        check_aisql_tables(rec, labels)
+        host = rec["wall"] - rec["engine_s"]
+        print(f"aisql {rec['name']}: {rec['wall']:.3f} s wall ({host:.3f} s "
+              f"in the SQL layer, {rec['engine_s']:.3f} s in the engines), "
+              f"{len(rec['rows'])} rows, {rec['ai_calls']} AI calls, "
+              f"{rec['credits']:.6g} credits, calls_by_model "
+              f"{rec['by_model']}, index searches {rec['searches']}")
+        print(f"  optimizer: {rec['trace']}; runtime: {rec['reopt'][:2]}")
+    (stats,) = k_recs[0]["cascades"].values()
+    print(f"aisql filter_cascade: cascade {stats}, delegation rate "
+          f"{stats.delegation_rate:.4f}")
+    print(f"aisql launches: {launches}; index searches and "
+          f"topk_candidates calls {searches}")
+    if not set(k_recs[0]["by_model"]) == {"proxy-8b", "oracle-70b"}:
+        fail("the cascade did not call both proxy-8b and oracle-70b")
+    if min(launches.values()) == 0 or launches["similarity_topk"] != searches:
+        fail("the AISQL phase did not launch K1, K2 and K3, or K3's launches "
+             "differ from the manager's searches")
+
+    # the same queries through the plain versions, on fresh engines of the
+    # SQL layer over the same models and seeds
+    p_recs = aisql_run(torch, engines, oracle, "reference")
+    if [dec_ops.LAUNCHES, flash_ops.LAUNCHES,
+            topk_ops.LAUNCHES] != list(launches.values()):
+        fail("the plain path launched a kernel")
+    for rec in p_recs:
+        check_aisql_tables(rec, labels)
+    print(f"aisql plain path: {sum(r['wall'] for r in p_recs):.3f} s for the "
+          f"five queries (kernel path {sum(r['wall'] for r in k_recs):.3f} s)"
+          f"; peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    k_score = {key: res.score for key, res in k_recs[0]["results"].items()
+               if key[1] == "score"}
+    p_score = {key: res.score for key, res in p_recs[0]["results"].items()
+               if key[1] == "score"}
+    d_score = max(abs(k_score[key] - p_score[key])
+                  for key in k_score.keys() & p_score.keys())
+    lps = [(lp, p["logprobs"][key]) for k, p in zip(k_recs, p_recs)
+           for key, lp in k["logprobs"].items() if key in p["logprobs"]]
+    d_lp = max(abs(a - b) for a, b in lps)
+    print(f"aisql kernel vs plain: SCORE max |diff| {d_score:.3g} over "
+          f"{len(k_score.keys() & p_score.keys())} prompts (AISQL_SCORE_TOL "
+          f"{AISQL_SCORE_TOL}); CLASSIFY label logprobs max |diff| "
+          f"{d_lp:.3g} nats over {len(lps)} continuations (AISQL_LOGPROB_TOL "
+          f"{AISQL_LOGPROB_TOL})")
+    if not (d_score <= AISQL_SCORE_TOL and d_lp <= AISQL_LOGPROB_TOL):
+        fail("the AISQL queries' SCOREs or label logprobs differ between "
+             "the kernel path and the plain path beyond their limits")
+    bad = []
+    for rid, kept, margin in filter_flips(k_recs[0], p_recs[0]):
+        print(f"  aisql filter flip: review {rid} kept by the "
+              f"{'kernel' if kept else 'plain'} path only, plain margin "
+              f"{margin:.3g}")
+        if not margin <= AISQL_SCORE_TOL:
+            bad.append(f"review {rid}")
+    for k, p in zip(k_recs[1:], p_recs[1:]):
+        name = k["name"]
+        if name in ("classify_groupby", "semantic_join"):
+            cands = (["politics", "business", "technology", "sports"]
+                     if name == "classify_groupby" else sorted(labels))
+            flips = classify_flips(k, p, cands, name == "semantic_join")
+            for prompt, (kl, pl, margin) in flips.items():
+                print(f"  aisql {name} label flip: kernel {kl}, plain {pl},"
+                      f" plain margin {margin:.3g} nats ({prompt[-48:]!r})")
+                if not margin <= AISQL_LOGPROB_TOL:
+                    bad.append(name)
+            for rec in (k, p):
+                want, got = classify_table(rec, catalog)
+                if want != got:
+                    fail(f"aisql {name}: the table is not the one its "
+                         f"labels give: {got[:8]} vs {want[:8]}")
+            print(f"aisql {name}: {len(flips)} label flips, tables equal "
+                  f"{k['rows'] == p['rows']}")
+        elif k["rows"] != p["rows"]:
+            print(f"  aisql {name} differs: kernel {k['rows'][:12]} plain "
+                  f"{p['rows'][:12]}")
+            bad.append(name)
+    if bad:
+        fail(f"the AISQL kernel-path and plain-path rows differ outside "
+             f"the bands: {bad}")
+
+    rows = []
+    for name, best, timer in (
+            ("decode_attention", k1_best, lambda a, kw: time_decode(
+                torch, dec_ops, *a)),
+            ("flash_attention", k2_best, lambda a, kw: time_flash(
+                torch, flash_ops, *a, **kw)),
+            ("similarity_topk", k3_best, lambda a, kw: time_topk(
+                torch, topk_ops, "aisql search", *a))):
+        t = timer(*best[0])
+        err = t.pop("max_abs_err")
+        if name != "similarity_topk":
+            err = gate_err(name, err, best[0][0][0].dtype)
+        errs[name] = max(errs[name], err)
+        rows.append(kernel_row(name, launches[name], err, t, path="aisql"))
+    del oracle, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def topk_bounds(Q, N, D, k):
     """K3's bound: q and c read once, vals and idx written once, against
     the operations of the instruction it runs, three TF32 products of
@@ -1337,12 +1785,14 @@ def main() -> int:
                                                               errs)]
     # 7. the semantic index on the same engine, through K3
     rows.append(index_path(torch, eng, errs) | {"path": "semantic index"})
+    # 8. AISQL queries over proxy-8b and oracle-70b (K1, K2, K3)
+    rows += aisql_path(torch, eng, errs)
     long_shapes(torch, dec_ops, flash_ops, dev)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     topk_full_shapes(torch, topk_ops, dev)
-    # 8-9. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
+    # 9-10. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
     rows += rwkv_path(torch, errs)
     rows += recurrentgemma_path(torch, errs)
 

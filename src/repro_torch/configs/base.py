@@ -185,9 +185,10 @@ class ModelConfig:
         return self.param_count() - inactive * n_moe_layers
 
 
-# Architectures the port implements: the dense global-attention decoder,
-# the attention-free RWKV-6 model and the RG-LRU / local-attention hybrid.
-PORTED_IDS = ("proxy-8b", "rwkv6-1.6b", "recurrentgemma-9b")
+# Architectures the port implements: the dense global-attention decoders
+# of the cascade pair, the attention-free RWKV-6 model and the RG-LRU /
+# local-attention hybrid.
+PORTED_IDS = ("proxy-8b", "oracle-70b", "rwkv6-1.6b", "recurrentgemma-9b")
 
 # Every architecture the JAX package hosts; the ones missing from
 # PORTED_IDS are queued for later slices of the port.
@@ -199,6 +200,7 @@ KNOWN_IDS = (
 
 _MODULE_FOR = {
     "proxy-8b": "proxy_8b",
+    "oracle-70b": "oracle_70b",
     "rwkv6-1.6b": "rwkv6_16b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }

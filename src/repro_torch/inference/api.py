@@ -233,7 +233,7 @@ def make_simulated_client(*, seed: int = 0, default_model: str = "oracle-70b",
                         pipeline=_make_pipeline(pipelined, pipeline))
 
 
-def make_engine_client(archs: Sequence[str] = ("proxy-8b",), *,
+def make_engine_client(archs: Sequence[str] = ("proxy-8b", "oracle-70b"), *,
                        seed: int = 0, replicas: int = 1,
                        default_model: Optional[str] = None,
                        pipelined: bool = False,
@@ -245,8 +245,8 @@ def make_engine_client(archs: Sequence[str] = ("proxy-8b",), *,
     on ``device``; like the engines, it raises without CUDA unless the
     caller passes ``device="cpu"``.  ``backend`` pins the engines' decode
     backend ("auto" picks continuous batching wherever the architecture
-    supports the paged KV cache).  Only proxy-8b is ported so far, so it
-    is the default (the JAX package's default adds oracle-70b)."""
+    supports the paged KV cache).  The default hosts the cascade pair,
+    proxy-8b and oracle-70b, as the JAX package's does."""
     from repro_torch.inference.engine import TorchInferenceEngine
     sched = Scheduler()
     for arch in archs:

@@ -26,11 +26,12 @@ from __future__ import annotations
 
 import hashlib
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.inference import tokenizer as tok
 from repro_torch.inference.backend import (CLASSIFY, COMPLETE, EMBED, SCORE,
                                            EngineFailure, Request, Result,
@@ -60,9 +61,14 @@ def _stamp_latency(results: List[Result], t0: float) -> List[Result]:
 
 
 class TorchInferenceEngine:
-    """Hosts one model and serves batched requests."""
+    """Hosts one model and serves batched requests.
 
-    def __init__(self, arch: str, *, engine_id: str = "", smoke: bool = True,
+    ``arch`` is a model id (its full or, with ``smoke``, its smoke config)
+    or a `ModelConfig` taken as it is, e.g. a model with its depth cut; the
+    engine serves and meters it under the config's name."""
+
+    def __init__(self, arch: Union[str, ModelConfig], *, engine_id: str = "",
+                 smoke: bool = True,
                  max_batch: int = 8, max_seq: int = 384, seed: int = 0,
                  failure_rate: float = 0.0, straggle_s: float = 0.0,
                  backend: str = "auto", block_size: int = 32,
@@ -74,10 +80,10 @@ class TorchInferenceEngine:
             raise RuntimeError(
                 "TorchInferenceEngine: CUDA is not available; pass "
                 "device='cpu' to run on the CPU")
-        self.arch = arch
-        self.engine_id = engine_id or f"{arch}#0"
         self.model = model_zoo.build(arch, smoke=smoke)
         self.cfg = self.model.cfg
+        self.arch = arch = arch if isinstance(arch, str) else self.cfg.name
+        self.engine_id = engine_id or f"{arch}#0"
         if self.cfg.vocab_size < tok.VOCAB_SIZE:
             raise ValueError(f"{arch}: vocab smaller than the tokenizer's")
         self.max_batch = max_batch

@@ -53,10 +53,13 @@ def _tokens(seed, B, S, vocab):
 
 
 def test_configs_match_the_reference():
-    assert (dataclasses.asdict(tcfgs.get_config("proxy-8b"))
-            == dataclasses.asdict(jcfgs.get_config("proxy-8b")))
+    for arch in ("proxy-8b", "oracle-70b"):
+        assert (dataclasses.asdict(tcfgs.get_config(arch))
+                == dataclasses.asdict(jcfgs.get_config(arch)))
+        assert (dataclasses.asdict(tcfgs.get_smoke_config(arch))
+                == dataclasses.asdict(jcfgs.get_smoke_config(arch)))
     with pytest.raises(NotImplementedError):
-        tcfgs.get_config("oracle-70b")
+        tcfgs.get_config("qwen3-32b")
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-model")
     with pytest.raises(NotImplementedError):
