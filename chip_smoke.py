@@ -24,7 +24,13 @@ cascade pair and the index (AI_FILTER with cascades, AI_CLASSIFY with
 GROUP BY, AI_COMPLETE with LIMIT, a semantic join rewritten to
 classification, ORDER BY AI_SIMILARITY ... LIMIT), with K1, K2 and K3 in
 the loop, and again through their plain versions, gating on the tables,
-the meters and the rows of both runs.  Then it serves the same mix with
+the meters and the rows of both runs.  It serves the first three queries
+again over HTTP (``AisqlHttpServer`` -> ``ServingEngine`` with 4 workers
+and three tenants), one at a time and then streamed at once, holds their
+rows to the in-process run, asks NL2SQL one question (a 422 after its
+attempts: random weights write no valid SQL), and checks the error
+paths, the tenants' billing, the traces and the retry counters.  Then it
+serves the same mix with
 rwkv6-1.6b (24 RWKV-6 blocks, d_model 2048, every
 wkv scan through K5) and recurrentgemma-9b (38 RG-LRU and local-attention
 layers, d_model 4096, vocab 256000: RG-LRU scans through K4, the
@@ -46,6 +52,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -78,6 +85,22 @@ SERVE_TOL = {
 # kernel-vs-plain label logprob difference the card read (0.0306 nats)
 AISQL_SCORE_TOL = 0.0
 AISQL_LOGPROB_TOL = 0.1
+# the top logits kept of each token a COMPLETE picks on oracle-70b
+TOPS = 8
+# HTTP phase (PERF.md, section 6): what the engines computed for the
+# queries served over HTTP, one at a time and then three at once from
+# three tenants, against the in-process kernel run and each other:
+# SCOREs within HTTP_SCORE_TOL, CLASSIFY label logprobs within
+# HTTP_LOGPROB_TOL (nats), each COMPLETE step's top logit within
+# HTTP_LOGIT_TOL; a row may differ only where the reference's margin to
+# the decision lies within the same band.  The card read no difference
+# (384 SCOREs, 256 label logprobs, 512 COMPLETE steps in each
+# comparison): the shared pipeline dispatches each session's requests
+# apart, so every engine call gets the in-process run's batch, and the
+# kernels give the same bits for the same batch.  So the bands are 0
+HTTP_SCORE_TOL = 0.0
+HTTP_LOGPROB_TOL = 0.0
+HTTP_LOGIT_TOL = 0.0
 # oracle-70b's depth on the card: all 80 layers hold 141 GB of bf16; 20
 # hold 38.4 GB beside proxy-8b's 16.1 GB
 ORACLE_LAYERS = 20
@@ -1293,14 +1316,17 @@ def aisql_queries(join_prompt):
 class EngineTap:
     """Wraps each engine's ``submit_batch``: times every call and keeps
     each result by (model, kind, prompt); the oracle's
-    ``_sequence_logprob`` keeps each label continuation's logprob."""
+    ``_sequence_logprob`` keeps each label continuation's logprob, and its
+    continuous batcher the top TOPS logits (values, ids) of every token
+    it picks for a COMPLETE, by (prompt, step)."""
 
     def __init__(self, engines, oracle):
         self.engines, self.oracle = engines, oracle
-        self.results, self.logprobs = {}, {}
+        self.results, self.logprobs, self.tops = {}, {}, {}
         self.seconds = 0.0
 
     def __enter__(self):
+        import torch
         for e in self.engines:
             real = e.submit_batch
 
@@ -1319,12 +1345,48 @@ class EngineTap:
             self.logprobs.update(zip(zip(prompts, conts), out[0]))
             return out
         self.oracle._sequence_logprob = lp
+        # the first token comes from the prefill's logits row, each next
+        # one from a decode step's logits (slot rows, read in logits_of)
+        b = self.batcher = self.oracle._batcher
+        self.model = b.model
+        real_fin, real_step = b._finish_prefill, b._decode_step
+        stepping = []
+
+        def finish(s, row, *a):
+            if s.req.kind == "complete":
+                v, i = torch.from_numpy(row).topk(TOPS)
+                self.tops[(s.req.prompt, 0)] = (v.tolist(), i.tolist())
+            return real_fin(s, row, *a)
+
+        def step(active, *a):
+            stepping[:] = [(s.slot, s.req.prompt, len(s.out))
+                           for s in active
+                           if s is not None and s.state == "decode"]
+            try:
+                return real_step(active, *a)
+            finally:
+                stepping.clear()
+
+        def logits_of(params, h):
+            out = self.model.logits_of(params, h)
+            if stepping:
+                v, i = out.float().topk(TOPS, dim=-1)
+                v, i = v.cpu().tolist(), i.cpu().tolist()
+                for slot, prompt, t in stepping:
+                    self.tops[(prompt, t)] = (v[slot], i[slot])
+                stepping.clear()
+            return out
+        b._finish_prefill, b._decode_step = finish, step
+        b.model = dataclasses.replace(self.model, logits_of=logits_of)
         return self
 
     def __exit__(self, *exc):
         for e in self.engines:
             e.__dict__.pop("submit_batch", None)
         self.oracle.__dict__.pop("_sequence_logprob", None)
+        for name in ("_finish_prefill", "_decode_step"):
+            self.batcher.__dict__.pop(name, None)
+        self.batcher.model = self.model
 
 
 def most_work_recorder(work):
@@ -1372,7 +1434,7 @@ def aisql_run(torch, engines, oracle, impl):
                 served0 = sum(e.total_credits for e in engines)
                 searches0 = mgr.snapshot()["index_searches"]
                 engine_s0 = tap.seconds
-                tap.results, tap.logprobs = {}, {}
+                tap.results, tap.logprobs, tap.tops = {}, {}, {}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = eng.sql(sql)
@@ -1398,7 +1460,8 @@ def aisql_run(torch, engines, oracle, impl):
                     "reopt": list(rep.reoptimizations),
                     "cascades": {k: c.stats for k, c in
                                  eng.exec.cascades.items()},
-                    "results": tap.results, "logprobs": tap.logprobs})
+                    "results": tap.results, "logprobs": tap.logprobs,
+                    "tops": tap.tops})
     finally:
         for e in engines:
             e._batcher.decode_impl = "auto"
@@ -1524,6 +1587,493 @@ def classify_table(rec, catalog):
     return sorted(pairs), sorted(rec["rows"])
 
 
+# ---------------------------------------------------------------------------
+# HTTP: the AISQL service on the card (AisqlHttpServer -> ServingEngine ->
+# Scheduler -> both engines), queries 1-3 of the AISQL phase
+# ---------------------------------------------------------------------------
+
+HTTP_TENANTS = ("acme", "globex", "initech")
+SECTIONS = ["politics", "business", "technology", "sports"]
+
+
+def k1_work(args):
+    """Valid keys of a K1 launch (its rows' lengths within the cache)."""
+    return int(args[3].clamp(max=args[1].shape[1]).sum())
+
+
+def k2_work(args):
+    return args[0].numel()
+
+
+def token_ids(tops, prompt):
+    """The tokens a run picked for a COMPLETE prompt, from its tops."""
+    ids = []
+    while (prompt, len(ids)) in tops:
+        ids.append(tops[(prompt, len(ids))][1][0])
+    return ids
+
+
+def complete_flips(k_rec, p_rec):
+    """The COMPLETE prompts whose texts differ between two runs,
+    {prompt: (step, margin)}: the first step at which the runs picked
+    different tokens, and there the reference run's (``p_rec``'s) top
+    logit over its logit of the token the other run picked (inf when that
+    token is not among its TOPS best)."""
+    flips = {}
+    for key, res in p_rec["results"].items():
+        if key[1] != "complete" or k_rec["results"][key].text == res.text:
+            continue
+        k_ids = token_ids(k_rec["tops"], key[2])
+        p_ids = token_ids(p_rec["tops"], key[2])
+        t = next((i for i, (a, b) in enumerate(zip(k_ids, p_ids))
+                  if a != b), min(len(k_ids), len(p_ids)))
+        margin = math.inf
+        if t < len(k_ids) and (key[2], t) in p_rec["tops"]:
+            vals, ids = p_rec["tops"][(key[2], t)]
+            if k_ids[t] in ids:
+                margin = vals[0] - vals[ids.index(k_ids[t])]
+        flips[key[2]] = (t, margin)
+    return flips
+
+
+def run_diffs(k_rec, p_rec):
+    """The largest differences between two runs on the same inputs:
+    SCOREs, label logprobs (nats), and the top logit of each COMPLETE
+    step whose context (the tokens picked before it) both runs share."""
+    def scores(rec):
+        return {key: res.score for key, res in rec["results"].items()
+                if key[1] == "score"}
+    ks, ps = scores(k_rec), scores(p_rec)
+    d_score = max((abs(ks[key] - ps[key]) for key in ks.keys() & ps.keys()),
+                  default=0.0)
+    d_lp = max((abs(k_rec["logprobs"][key] - v)
+                for key, v in p_rec["logprobs"].items()
+                if key in k_rec["logprobs"]), default=0.0)
+    d_logit, steps = 0.0, 0
+    for (prompt, t), (vals, _) in p_rec["tops"].items():
+        if (prompt, t) not in k_rec["tops"]:
+            continue
+        if (token_ids(k_rec["tops"], prompt)[:t]
+                == token_ids(p_rec["tops"], prompt)[:t]):
+            d_logit = max(d_logit, abs(k_rec["tops"][(prompt, t)][0][0]
+                                       - vals[0]))
+            steps += 1
+    return {"score": d_score, "scores": len(ks.keys() & ps.keys()),
+            "logprob": d_lp, "logit": d_logit, "steps": steps}
+
+
+def hold_rows(what, rec, ref, catalog, bad):
+    """Hold ``rec``'s rows, and what the engines computed for them, to
+    the reference run ``ref``'s under the HTTP bands, printing every flip
+    with the reference's margin; what breaks a band goes to ``bad``.
+    Each table must be the one its own per-row answers give."""
+    name = rec["name"]
+    if rec["cols"] != ref["cols"]:
+        fail(f"http {what} {name}: columns {rec['cols']} != {ref['cols']}")
+    if name == "filter_cascade":
+        flips = filter_flips(rec, ref)
+        for rid, kept, margin in flips:
+            print(f"  http {what} filter flip: review {rid} kept by "
+                  f"{'this' if kept else 'the reference'} run only, "
+                  f"reference margin {margin:.3g}")
+            if not margin <= HTTP_SCORE_TOL:
+                bad.append(f"{what} {name} review {rid}")
+    elif name == "classify_groupby":
+        flips = classify_flips(rec, ref, SECTIONS, False)
+        for prompt, (kl, pl, margin) in flips.items():
+            print(f"  http {what} label flip: {kl} vs the reference's {pl},"
+                  f" reference margin {margin:.3g} nats ({prompt[-48:]!r})")
+            if not margin <= HTTP_LOGPROB_TOL:
+                bad.append(f"{what} {name}")
+        want, got = classify_table(rec, catalog)
+        if want != got:
+            fail(f"http {what} {name}: the table is not the one its labels "
+                 f"give: {got} vs {want}")
+    else:
+        flips = complete_flips(rec, ref)
+        for prompt, (t, margin) in flips.items():
+            print(f"  http {what} COMPLETE flip at token {t}: reference "
+                  f"margin {margin:.3g} ({prompt[:48]!r})")
+            if not margin <= HTTP_LOGIT_TOL:
+                bad.append(f"{what} {name}")
+        body = dict(zip(catalog.table("articles").column("id").tolist(),
+                        catalog.table("articles").column("body")))
+        for r in (rec, ref):
+            for rid, text in r["rows"]:
+                res = r["results"].get(
+                    ("oracle-70b", "complete", f"Summarize: {body[rid]}"))
+                if res is None or res.text != text:
+                    fail(f"http {what} {name}: row {rid}'s summary is not "
+                         f"its COMPLETE's text")
+        if [r[0] for r in rec["rows"]] != [r[0] for r in ref["rows"]]:
+            fail(f"http {what} {name}: ids {rec['rows']} vs {ref['rows']}")
+    d = run_diffs(rec, ref)
+    print(f"http {what} {name}: {len(flips)} flips, rows equal "
+          f"{sorted(rec['rows']) == sorted(ref['rows'])}; max |diff| SCORE "
+          f"{d['score']:.3g} over {d['scores']} prompts, label logprob "
+          f"{d['logprob']:.3g} nats, COMPLETE top logit {d['logit']:.3g} "
+          f"over {d['steps']} steps with a shared context")
+    if not (d["score"] <= HTTP_SCORE_TOL and d["logprob"] <= HTTP_LOGPROB_TOL
+            and d["logit"] <= HTTP_LOGIT_TOL):
+        bad.append(f"{what} {name} beyond the bands")
+
+
+def expect_status(status, code, fn):
+    """The error body of ``fn()``'s HTTP call, which must fail with
+    ``status`` and ``code``."""
+    from repro_torch.serve.http import HttpStatusError
+    try:
+        fn()
+    except HttpStatusError as e:
+        if (e.status, e.code) != (status, code):
+            fail(f"http: expected {status} {code}, got {e.status} {e.code}:"
+                 f" {e.body}")
+        return e.body
+    fail(f"http: expected {status} {code}, the call succeeded")
+
+
+def thread_kind():
+    t = threading.current_thread()
+    if t is threading.main_thread():
+        return "main"
+    return "worker" if t.name.startswith("aisql-serve-") else "handler"
+
+
+class HttpPhase:
+    """Queries 1-3 of the AISQL phase over HTTP: a buffered pass, one
+    query at a time from three tenants, against the in-process kernel run;
+    NL2SQL and the error paths; then, on a fresh ``ServingEngine``, the
+    three streamed at once, against the buffered pass."""
+
+    def __init__(self, torch, engines, oracle):
+        from repro_torch.inference.scheduler import Scheduler
+        from repro_torch.serve import HttpConfig
+        self.torch, self.engines, self.oracle = torch, engines, oracle
+        self.catalog, join_prompt = aisql_catalog()
+        self.queries = aisql_queries(join_prompt)[:3]
+        self.sched = Scheduler()
+        for e in engines:
+            self.sched.register(e)
+        self.http_cfg = HttpConfig(
+            tokens={f"tok-{t}": t for t in HTTP_TENANTS},
+            request_timeout_s=600.0)
+
+    def serving(self):
+        from repro_torch.core import (CascadeConfig, ExecConfig,
+                                      ServingConfig, ServingEngine,
+                                      TenantPolicy)
+        return ServingEngine(
+            self.catalog, self.sched,
+            cfg=ServingConfig(workers=4, executor=ExecConfig(
+                use_cascade=True, cascade=CascadeConfig(seed=SEED))),
+            tenants={t: TenantPolicy() for t in HTTP_TENANTS})
+
+    @staticmethod
+    def client(srv, tenant, token=None):
+        from repro_torch.serve import AisqlHttpClient
+        return AisqlHttpClient(srv.host, srv.port, timeout=600.0,
+                               token=token or f"tok-{tenant}")
+
+    def served(self):
+        return sum(e.total_credits for e in self.engines)
+
+    def check_service(self, what, eng, srv, served, recs):
+        """After a pass: the wire report per tenant is the library's, the
+        tenant meters sum to what the engines served and to the queries'
+        credits, and no request was retried or failed."""
+        from repro_torch.serve.http import _dumps
+        eng.drain()
+        report = eng.report()
+        lib = json.loads(_dumps(dataclasses.asdict(report)))
+        for t in HTTP_TENANTS:
+            if self.client(srv, t).report()["tenants"][t] != \
+                    lib["tenants"][t]:
+                fail(f"http {what}: /v1/report for {t} is not report()")
+        spent = sum(t.credits_spent for t in report.tenants.values())
+        queries = sum(r["credits"] for r in recs)
+        if not (math.isclose(spent, report.total_credits, rel_tol=1e-9)
+                and math.isclose(spent, served, rel_tol=1e-9)
+                and math.isclose(spent, queries, rel_tol=1e-9)):
+            fail(f"http {what}: tenants spent {spent}, report "
+                 f"{report.total_credits}, engines {served}, queries "
+                 f"{queries}")
+        for rec in recs:
+            tr = report.tenants[rec["tenant"]]
+            if (tr.completed, tr.failed, tr.rejected) != (1, 0, 0) or \
+                    not math.isclose(tr.credits_spent, rec["credits"],
+                                     rel_tol=1e-9):
+                fail(f"http {what}: tenant {rec['tenant']}'s meter {tr}")
+        if (report.retries, report.failed_requests, report.scheduler_retries,
+                eng.pipeline.stats.retries,
+                eng.pipeline.stats.failures) != (0,) * 5:
+            fail(f"http {what}: retries or failures in the pipeline "
+                 f"({report.retries}, {report.failed_requests}, "
+                 f"{report.scheduler_retries})")
+        waits = {t: round(r.queue_wait_p50_s, 4)
+                 for t, r in report.tenants.items()}
+        print(f"http {what}: tenants spent {spent:.6g} credits = engines "
+              f"{served:.6g}; {report.dispatched_requests} requests "
+              f"dispatched of {report.submitted_requests}; 0 retries, 0 "
+              f"failures; queue wait p50 by tenant {waits} s")
+
+    def buffered(self, k_recs, bad):
+        """The buffered pass, traces, metrics, the error paths and
+        NL2SQL on one server."""
+        from repro_torch.serve import (AisqlHttpServer, NL2SQLOperator,
+                                       SemanticModel)
+        from repro_torch.inference.api import CortexClient
+        from repro_torch.obs import parse_prometheus_text
+        torch = self.torch
+        op = NL2SQLOperator(SemanticModel.from_catalog(self.catalog),
+                            self.catalog,
+                            CortexClient(self.sched,
+                                         default_model="oracle-70b",
+                                         proxy_model="proxy-8b"))
+        eng = self.serving()
+        srv = AisqlHttpServer(eng, nl2sql=op, cfg=self.http_cfg).start()
+        try:
+            served0 = self.served()
+            recs = []
+            for tenant, (name, sql) in zip(HTTP_TENANTS, self.queries):
+                with EngineTap(self.engines, self.oracle) as tap:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = self.client(srv, tenant).query(sql)
+                    wire = time.perf_counter() - t0
+                st = out["stats"]
+                recs.append({
+                    "name": name, "tenant": tenant, "cols": out["columns"],
+                    "rows": [tuple(r) for r in out["rows"]], "wire": wire,
+                    "serving_s": st["wall_s"], "queue_s": st["queue_wait_s"],
+                    "engine_s": tap.seconds, "ai_calls": st["ai_calls"],
+                    "credits": st["ai_credits"],
+                    "query_id": out["query_id"], "results": tap.results,
+                    "logprobs": tap.logprobs, "tops": tap.tops})
+            self.check_service("buffered pass", eng, srv,
+                               self.served() - served0, recs)
+            for rec in recs:
+                (session,) = eng._idle_sessions[rec["tenant"]]
+                rec["cascades"] = {k: c.stats for k, c in
+                                   session.engine.exec.cascades.items()}
+                spans = []
+                stack = [self.client(srv, rec["tenant"]).trace(
+                    rec["query_id"])["trace"]]
+                while stack:
+                    sp = stack.pop()
+                    stack += sp["children"]
+                    if sp["kind"] == "dispatch.replica":
+                        spans.append(sp["attrs"]["model"])
+                models = {key[0] for key in rec["results"]}
+                if set(spans) != models:
+                    fail(f"http {rec['name']}: trace dispatches to "
+                         f"{sorted(set(spans))}, the engines served "
+                         f"{sorted(models)}")
+                serving = rec["queue_s"] + rec["serving_s"]
+                print(f"http {rec['name']} (tenant {rec['tenant']}, "
+                      f"buffered): {rec['wire']:.3f} s on the wire, "
+                      f"{serving:.3f} s in the ServingEngine (queue "
+                      f"{rec['queue_s']:.4f} s), HTTP layer "
+                      f"{rec['wire'] - serving:.4f} s; engines "
+                      f"{rec['engine_s']:.3f} s; {len(rec['rows'])} rows, "
+                      f"{rec['ai_calls']} AI calls, {rec['credits']:.6g} "
+                      f"credits; trace: {len(spans)} engine dispatches")
+            metrics = parse_prometheus_text(
+                self.client(srv, HTTP_TENANTS[0]).metrics())
+            if "aisql_pipeline_events_total" not in metrics:
+                fail(f"http: /v1/metrics lacks the pipeline's counters: "
+                     f"{sorted(metrics)[:8]}")
+            print(f"http /v1/metrics: {len(metrics)} families parsed")
+            for rec, ref in zip(recs, k_recs):
+                hold_rows("buffered pass vs in-process", rec, ref,
+                          self.catalog, bad)
+            self.error_paths(srv)
+            self.nl2sql(srv, op)
+        finally:
+            srv.stop()
+            eng.close()
+        return recs
+
+    def error_paths(self, srv):
+        c = self.client(srv, HTTP_TENANTS[0])
+        body = expect_status(400, "invalid_sql", lambda: c.query(
+            "SELECT r.id FROM reviews AS r LIMIT x"))
+        line, caret = body["error"]["caret"].splitlines()
+        if line[caret.index("^")] != "x":
+            fail(f"http 400: the caret is not under the bad token: {body}")
+        expect_status(401, "unauthorized", lambda: self.client(
+            srv, None, token="bad").query("SELECT COUNT(*) FROM reviews"))
+        expect_status(404, "not_found",
+                      lambda: c._request("GET", "/v1/nope").read())
+        print("http error paths: 400 invalid_sql with its caret, 401 "
+              "unauthorized, 404 not_found")
+
+    def nl2sql(self, srv, op):
+        """One question: random weights give no valid SQL, so every
+        attempt is rejected and the answer is a 422."""
+        from repro_torch.inference import tokenizer as tok
+        from repro_torch.kernels.decode_attention import ops as dec_ops
+        question = "how many positive reviews are there?"
+        n_tok = len(tok.encode(op._prompt(question, None)))
+        calls = []
+        real = self.oracle.submit_batch
+
+        def counted(reqs):
+            k0, t0 = dec_ops.LAUNCHES, time.perf_counter()
+            out = real(reqs)
+            calls.append(([r.kind for r in reqs],
+                          dec_ops.LAUNCHES - k0,
+                          [(res.tokens_in, res.tokens_out) for res in out],
+                          round(time.perf_counter() - t0, 3)))
+            return out
+        self.oracle.submit_batch = counted
+        served0 = self.served()
+        try:
+            t0 = time.perf_counter()
+            body = expect_status(422, "nl2sql_rejected", lambda: self.client(
+                srv, HTTP_TENANTS[1]).nl2sql(question))
+            wire = time.perf_counter() - t0
+        finally:
+            self.oracle.__dict__.pop("submit_batch", None)
+        n = op.max_attempts
+        print(f"http nl2sql: 422 in {wire:.3f} s; prompt {n_tok} tokens "
+              f"(the engine keeps {min(n_tok, self.oracle.max_seq)}: BOS and "
+              f"the tail); attempts (kinds, K1 launches, tokens in and out, "
+              f"s): "
+              f"{calls}; rejected_sql "
+              f"{body['error'].get('rejected_sql', '')[:60]!r}")
+        if not ("rejected_sql" in body["error"] and len(calls) == n
+                and all(kinds == ["complete"] and k1 > 0
+                        for kinds, k1, _, _ in calls)
+                and op.client.calls_by_model == {"oracle-70b": n}
+                and op.rejected_attempts == n
+                and math.isclose(op.client.ai_credits,
+                                 self.served() - served0, rel_tol=1e-9)):
+            fail(f"http nl2sql: expected {n} oracle COMPLETEs through K1, "
+                 f"each rejected; got {calls}, "
+                 f"{op.client.calls_by_model}")
+
+    def concurrent(self, serial, bad):
+        """A fresh ServingEngine (a cold cross-query cache); each tenant
+        streams its query at the same moment."""
+        from repro_torch.serve import AisqlHttpServer
+        eng = self.serving()
+        srv = AisqlHttpServer(eng, cfg=self.http_cfg).start()
+        try:
+            served0 = self.served()
+            start = threading.Barrier(len(self.queries))
+            got, errors = {}, []
+
+            def drive(tenant, name, sql):
+                c = self.client(srv, tenant)
+                try:
+                    start.wait(timeout=60)
+                    t0 = time.perf_counter()
+                    events = list(c.query_stream(sql))
+                    got[name] = (events, time.perf_counter() - t0)
+                except Exception as e:       # failed after the join
+                    errors.append((tenant, name, e))
+            with EngineTap(self.engines, self.oracle) as tap:
+                threads = [threading.Thread(target=drive, args=(t, n, q))
+                           for t, (n, q) in zip(HTTP_TENANTS, self.queries)]
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=900)
+                wall = time.perf_counter() - t0
+            if errors or any(th.is_alive() for th in threads):
+                fail(f"http concurrent pass: {errors}")
+            recs = []
+            for tenant, (name, _) in zip(HTTP_TENANTS, self.queries):
+                events, wire = got[name]
+                kinds = [e["kind"] for e in events]
+                rows = [tuple(e["values"]) for e in events
+                        if e["kind"] == "row"]
+                summary = events[-1]
+                if not (kinds[0] == "schema" and kinds[-1] == "summary"
+                        and set(kinds[1:-1]) <= {"row"}
+                        and summary["row_count"] == len(rows)):
+                    fail(f"http {name}: a malformed stream {kinds[:4]}..."
+                         f"{kinds[-2:]}")
+                recs.append({
+                    "name": name, "tenant": tenant,
+                    "cols": events[0]["columns"], "rows": rows,
+                    "wire": wire, "serving_s": summary["wall_s"],
+                    "ai_calls": summary["ai_calls"],
+                    "credits": summary["ai_credits"],
+                    "results": tap.results, "logprobs": tap.logprobs,
+                    "tops": tap.tops})
+                print(f"http {name} (tenant {tenant}, streamed at once): "
+                      f"{wire:.3f} s on the wire, {summary['wall_s']:.3f} s "
+                      f"in the ServingEngine's session, outside it (queue, "
+                      f"session checkout, HTTP) {wire - summary['wall_s']:.4f}"
+                      f" s; {len(rows)}"
+                      f" rows, {summary['ai_calls']} AI calls, "
+                      f"{summary['ai_credits']:.6g} credits")
+            print(f"http concurrent pass: {wall:.3f} s for the three "
+                  f"queries (buffered one at a time "
+                  f"{sum(r['wire'] for r in serial):.3f} s); engines "
+                  f"{tap.seconds:.3f} s")
+            self.check_service("concurrent pass", eng, srv,
+                               self.served() - served0, recs)
+            for rec, ref in zip(recs, serial):
+                hold_rows("streamed at once vs buffered", rec, ref,
+                          self.catalog, bad)
+        finally:
+            srv.stop()
+            eng.close()
+
+
+def http_path(torch, engines, oracle, k_recs, errs):
+    """The AISQL service on the card over the engines of the AISQL phase
+    (``HttpPhase``), with K1 and K2 counted and timed on the launches the
+    server's threads made.  Returns the kernels-line rows."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    phase = HttpPhase(torch, engines, oracle)
+    threads = {}
+
+    def by_thread(name, record):
+        def rec(args, kw, out):
+            key = (name, thread_kind())
+            threads[key] = threads.get(key, 0) + 1
+            record(args, kw, out)
+        return rec
+    k1_best, k1_rec = most_work_recorder(k1_work)
+    k2_best, k2_rec = most_work_recorder(k2_work)
+    bad = []
+    for mod in (dec_ops, flash_ops):
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with Spy(dec_ops, "decode_attention_cuda",
+             by_thread("decode_attention", k1_rec)), \
+            Spy(flash_ops, "flash_attention_cuda",
+                by_thread("flash_attention", k2_rec)):
+        serial = phase.buffered(k_recs, bad)
+        phase.concurrent(serial, bad)
+    launches = {"decode_attention": dec_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES}
+    print(f"http phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}, by thread {threads}")
+    if min(launches.values()) == 0 or any(
+            kind == "main" for _, kind in threads):
+        fail("the HTTP phase did not launch K1 and K2 from the server's "
+             "threads")
+    rows = []
+    for name, best, timer in (
+            ("decode_attention", k1_best, lambda a, kw: time_decode(
+                torch, dec_ops, *a)),
+            ("flash_attention", k2_best, lambda a, kw: time_flash(
+                torch, flash_ops, *a, **kw))):
+        t = timer(*best[0])
+        err = gate_err(name, t.pop("max_abs_err"), best[0][0][0].dtype)
+        errs[name] = max(errs[name], err)
+        rows.append(kernel_row(name, launches[name], err, t, path="http"))
+    if bad:
+        fail(f"the HTTP phase's rows differ outside the bands: {bad}")
+    return rows
+
+
 def aisql_path(torch, eng, errs):
     """Build oracle-70b at full width (depth cut), serve the five AISQL
     queries through ``AisqlEngine.sql`` over proxy-8b (``eng``) and
@@ -1557,9 +2107,8 @@ def aisql_path(torch, eng, errs):
     catalog, _ = aisql_catalog()      # the catalog each run rebuilds
     labels = set(catalog.table("r").column("label").tolist())
 
-    k1_best, k1_rec = most_work_recorder(
-        lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
-    k2_best, k2_rec = most_work_recorder(lambda a: a[0].numel())
+    k1_best, k1_rec = most_work_recorder(k1_work)
+    k2_best, k2_rec = most_work_recorder(k2_work)
     k3_best, k3_rec = most_work_recorder(
         lambda a: a[0].shape[0] * a[1].shape[0])
     for mod in (dec_ops, flash_ops, topk_ops):
@@ -1631,8 +2180,7 @@ def aisql_path(torch, eng, errs):
     for k, p in zip(k_recs[1:], p_recs[1:]):
         name = k["name"]
         if name in ("classify_groupby", "semantic_join"):
-            cands = (["politics", "business", "technology", "sports"]
-                     if name == "classify_groupby" else sorted(labels))
+            cands = SECTIONS if name == "classify_groupby" else sorted(labels)
             flips = classify_flips(k, p, cands, name == "semantic_join")
             for prompt, (kl, pl, margin) in flips.items():
                 print(f"  aisql {name} label flip: kernel {kl}, plain {pl},"
@@ -1668,6 +2216,9 @@ def aisql_path(torch, eng, errs):
             err = gate_err(name, err, best[0][0][0].dtype)
         errs[name] = max(errs[name], err)
         rows.append(kernel_row(name, launches[name], err, t, path="aisql"))
+    # 8b. queries 1-3 over HTTP, on the same engines (no plain-path switch
+    # is on: kernel_impls and the batchers' decode_impl are back at "auto")
+    rows += http_path(torch, engines, oracle, k_recs, errs)
     del oracle, engines
     gc.collect()
     torch.cuda.empty_cache()
