@@ -37,6 +37,15 @@ layers, d_model 4096, vocab 256000: RG-LRU scans through K4, the
 sliding-window attention through K2 and K1 at head dim 256), both at full
 width and depth on the engine's static path, with the same gates against
 their plain paths (every scan and attention through its plain version).
+Then the zoo phase serves the same mix with qwen3-32b (qk-norm),
+command-r-35b (LayerNorm, parallel blocks, tied 256000-row embedding),
+minitron-8b, phi3.5-moe-42b-a6.6b (16 experts, top-2; 24 of its 32
+layers) and qwen2-moe-a2.7b (60 experts padded to 64, top-4, a fused
+shared expert), each alone on the card at full width on the continuous
+batcher, with the same gates; for the two mixtures of experts it counts
+the tokens whose experts differ between the kernel and plain paths and
+excuses a gap only where such a flip lies within a stated margin of the
+plain router's decision.
 Last it times each kernel beside its plain version, its bound and, where
 one exists, one PyTorch library call.  The last line is a JSON object with
 ``"ok": true``; any failed check exits non-zero without it.  It needs no
@@ -65,10 +74,25 @@ TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
 # kernel-served vs plain-served limits at full width (bf16), a few times
 # the readings on the H100 (PERF.md, section 6): decode-step logits
 # (relative L2 per row), SCORE's prefill logits (the same, static path
-# only), CLASSIFY label logprobs (nats), EMBED cosine (lower limit)
+# only), CLASSIFY label logprobs (nats), EMBED cosine (lower limit).  The
+# zoo's: qwen3-32b read 0.0207 / 0.0284 / 0.999965, command-r-35b 0.0184
+# / 0.0371 / 0.999974, minitron-8b 0.017 / 0.0121 / 0.999975, and the MoE
+# models 0.0146 (phi3.5) and 0.0202 (qwen2) on decode rows without a
+# router flip (the rest are excused by flips, ROUTER_MARGIN_TOL)
 SERVE_TOL = {
     "proxy-8b": {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
                  "embed_cosine": 0.9995},
+    "qwen3-32b": {"decode_logits_rel": 0.05, "classify_logprob": 0.1,
+                  "embed_cosine": 0.9995},
+    "command-r-35b": {"decode_logits_rel": 0.05, "classify_logprob": 0.1,
+                      "embed_cosine": 0.9995},
+    "minitron-8b": {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
+                    "embed_cosine": 0.9995},
+    "phi3.5-moe-42b-a6.6b": {"decode_logits_rel": 0.05,
+                             "classify_logprob": 0.05,
+                             "embed_cosine": 0.9995},
+    "qwen2-moe-a2.7b": {"decode_logits_rel": 0.05, "classify_logprob": 0.05,
+                        "embed_cosine": 0.9995},
     "rwkv6-1.6b": {"decode_logits_rel": 0.05, "score_logits_rel": 0.1,
                    "classify_logprob": 0.05, "embed_cosine": 0.9995},
     "recurrentgemma-9b": {"decode_logits_rel": 0.08,
@@ -104,6 +128,29 @@ HTTP_LOGIT_TOL = 0.0
 # oracle-70b's depth on the card: all 80 layers hold 141 GB of bf16; 20
 # hold 38.4 GB beside proxy-8b's 16.1 GB
 ORACLE_LAYERS = 20
+# the zoo phase: decoders with qk-norm (qwen3-32b), parallel blocks and a
+# tied 256000-row embedding (command-r-35b), a 256000-row vocabulary
+# (minitron-8b) and mixtures of experts (phi3.5-moe, qwen2-moe), each alone
+# on the card at full width.  Depth is cut only where the bf16 weights do
+# not fit beside the served batch; each cut with its reason
+ZOO = ("qwen3-32b", "command-r-35b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
+       "qwen2-moe-a2.7b")
+ZOO_CUTS = {"phi3.5-moe-42b-a6.6b": (
+    24, "all 32 layers hold 83.8 GB of bf16, more than the card's 80 GB")}
+# MoE models, kernel path vs plain path: K1 and K2 differ from their plain
+# versions by bf16 rounding, and where the router's plain decision is a
+# near-tie that can send a token to another expert (a flip), after which
+# its logits differ by far more than SERVE_TOL.  A decode row (a pass, for
+# CLASSIFY and EMBED, whose rows share expert capacity) may break its
+# SERVE_TOL gate only where its first flip, at the earliest layer that
+# has one (both paths routed alike below it), lies within
+# ROUTER_MARGIN_TOL of the plain decision: the plain router's k-th minus
+# (k+1)-th logit for a top-k flip, the plain log-gate gap at the
+# expert's capacity edge for a capacity-drop flip.  Stated before the
+# first run; the H100 read first-flip margins up to 0.0372 (qwen2-moe)
+# and router-logit differences up to 0.0692 on the layers below a first
+# flip (PERF.md, sections 6 and 7)
+ROUTER_MARGIN_TOL = 0.05
 # K3 (similarity top-k, fp32): values within TOPK_TOL of the plain
 # version; ids equal except between rows whose plain scores lie within
 # TOPK_TOL of each other (fp32 sums in another order); on sign vectors,
@@ -562,20 +609,179 @@ def step_logits(batcher, tables, lens, cur, impl):
     return batcher.model.logits_of(params, out["hidden"][:, 0])
 
 
+def routing(params, x, ctx):
+    """Which experts computed each token in one MoE layer, recomputed on
+    the layer's input with the model's own routing functions, and what
+    their margins need: ``chosen`` / ``kept`` [T, E] bool (the router's
+    top-k; what survived the capacity), ``route_margin`` [T] (the k-th
+    minus the (k+1)-th router logit over the true experts), ``gates``
+    [T, E], ``edge`` [E, 2] (each expert's last kept and first dropped
+    gate, (inf, 0) where nothing dropped) and the router ``logits`` over
+    the true experts [T, E]."""
+    import torch
+    from repro_torch.models import blocks
+    m = ctx.cfg.moe
+    w = params["router"]["w"]
+    x2d = x.reshape(-1, x.shape[-1])
+    T = x2d.shape[0]
+    gates, _ = blocks._route(w, x2d, m)
+    cap = min(blocks._capacity(m, T, ctx.mode), T)
+    g, idx = blocks._top_k(gates.T, cap)                  # [E, C]
+    kept = torch.zeros_like(gates.T, dtype=torch.bool)
+    kept.scatter_(1, idx, g > 0)
+    k = m.num_experts_per_tok
+    logits = (x2d.float() @ w)[:, :m.num_experts]
+    top = torch.sort(logits, dim=-1, descending=True).values
+    edge = torch.tensor([[math.inf, 0.0]]).expand(gates.shape[1], 2)
+    if cap < T:
+        order = torch.sort(gates.T, dim=-1, descending=True).values
+        edge = order[:, cap - 1:cap + 1]
+    return {"chosen": (gates > 0).cpu(), "kept": kept.T.cpu(),
+            "route_margin": (top[:, k - 1] - top[:, k]).cpu(),
+            "gates": gates.cpu(), "edge": edge.cpu(), "logits": logits.cpu()}
+
+
+class RouterTap:
+    """For a model with a mixture of experts, records the ``routing`` of
+    every MoE layer that a model pass of mode ``mode`` runs while a
+    ``sink`` is set (``into``), once ``installed``; a no-op for a dense
+    model.  The recomputation launches no attention kernel."""
+
+    def __init__(self, cfg):
+        self.on = cfg.moe is not None
+        self.sink, self.mode = None, None
+
+    @contextlib.contextmanager
+    def installed(self):
+        if not self.on:
+            yield self
+            return
+        from repro_torch.models import blocks
+        with Spy(blocks, "moe_apply", self._record):
+            yield self
+
+    @contextlib.contextmanager
+    def into(self, sink, mode):
+        prev = self.sink, self.mode
+        self.sink, self.mode = sink, mode
+        try:
+            yield
+        finally:
+            self.sink, self.mode = prev
+
+    def _record(self, args, kw, out):
+        params, x, ctx = args
+        if self.sink is not None and ctx.mode == self.mode:
+            self.sink.append(routing(params, x, ctx))
+
+
+def expert_flips(k_recs, p_recs, n_layers):
+    """Every token whose computing experts differ between one pass on the
+    kernel path (``k_recs``, a ``routing`` record a layer) and on the
+    plain path (``p_recs``): [(layer, token, kind, plain margin)].  Kind
+    "route" where the router's top-k differs (margin: its plain logit
+    gap); "drop" where only the capacity drop does, at an expert whose
+    chosen tokens are the same on both paths (margin: the smallest plain
+    log-gate gap between the token and the capacity edge it crossed: the
+    first dropped gate for a token the plain path kept, the last kept for
+    one it dropped); "displaced" where the drop differs only at experts
+    that a route flip of another token entered or left (a consequence,
+    margin None)."""
+    if len(k_recs) != n_layers or len(p_recs) != n_layers:
+        fail(f"router tap: {len(k_recs)} / {len(p_recs)} MoE layers "
+             f"recorded in a pass of {n_layers}")
+    out = []
+    for layer, (a, b) in enumerate(zip(k_recs, p_recs)):
+        diff = a["kept"] != b["kept"]
+        moved = (a["chosen"] != b["chosen"]).any(0)        # [E]
+        for t in diff.any(1).nonzero().flatten().tolist():
+            if not bool((a["chosen"][t] == b["chosen"][t]).all()):
+                out.append((layer, t, "route", float(b["route_margin"][t])))
+                continue
+            es = (diff[t] & ~moved).nonzero().flatten().tolist()
+            if es:
+                lg = [math.log(float(b["gates"][t, e])) for e in es]
+                gaps = [g - math.log(float(b["edge"][e, 1]))
+                        if b["kept"][t, e] else
+                        math.log(float(b["edge"][e, 0])) - g
+                        for g, e in zip(lg, es)]
+                out.append((layer, t, "drop", min(gaps)))
+            else:
+                out.append((layer, t, "displaced", None))
+    return out
+
+
+def first_flips(flips, token=None):
+    """The flips (of ``token`` alone, if given) at the earliest layer that
+    has one: below it both paths routed alike, so only the kernels'
+    rounding can have moved its decisions."""
+    fl = [f for f in flips if token is None or f[1] == token]
+    if not fl:
+        return []
+    lo = min(f[0] for f in fl)
+    return [f for f in fl if f[0] == lo]
+
+
+def router_delta(k_recs, p_recs, flips, token=None):
+    """The largest router-logit difference between the paths (of
+    ``token``, if given) on the layers up to the first flip, all layers
+    where there is none: how far the kernels' rounding alone moved the
+    router's inputs."""
+    first = first_flips(flips, token)
+    last = first[0][0] if first else len(k_recs) - 1
+    d = 0.0
+    for a, b in zip(k_recs[:last + 1], p_recs[:last + 1]):
+        x = (a["logits"] - b["logits"]).abs()
+        d = max(d, float((x if token is None else x[token]).max()))
+    return d
+
+
+def explained(first) -> bool:
+    """A gap is explained by first flips that are decisions (route or
+    drop) all within ROUTER_MARGIN_TOL of the plain path's."""
+    margins = [f[3] for f in first if f[3] is not None]
+    return bool(margins) and max(margins) <= ROUTER_MARGIN_TOL
+
+
+def fmt_flips(first, shown=6):
+    """Layer, counts by kind, and the margins of the first decisions."""
+    if not first:
+        return ""
+    kinds = {}
+    for f in first:
+        kinds[f[2]] = kinds.get(f[2], 0) + 1
+    margins = sorted(f[3] for f in first if f[3] is not None)
+    return (f"layer {first[0][0]}: "
+            + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
+            + f", plain margins {[float(f'{m:.4g}') for m in margins[:shown]]}"
+            + (f" ... {margins[-1]:.4g}" if len(margins) > shown else ""))
+
+
 def serve_and_check(torch, eng, errs):
-    """Serve the mixed batch on the kernel path (counting launches, timing
-    steps), re-serve it through the plain attention, gate on both, and time
-    each kernel at the served inputs with the most work.  Returns the rows
-    of the kernels line."""
+    """Serve the mixed batch with ``eng`` (a model on the continuous
+    batcher) on the kernel path (counting launches, timing steps),
+    re-serve it through the plain attention, gate on both, and time each
+    kernel at the served inputs with the most work.  For a mixture of
+    experts, count the tokens whose experts differ between the paths
+    (``RouterTap``) and excuse a gap past SERVE_TOL only where such a flip
+    within ROUTER_MARGIN_TOL explains it.  Returns the rows of the kernels
+    line."""
     from repro_torch.inference import tokenizer as tok
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import attention
     cfg = eng.cfg
-    reqs = requests()
+    arch = eng.arch
+    L = cfg.num_layers
+    reqs = requests(arch)
+    marks = [("start", time.perf_counter())]
     # warm-up: the first calls pay for cuBLAS handles and allocator growth
     eng.submit_batch(reqs[:1] + reqs[-1:])
+    torch.cuda.synchronize()
+    marks.append(("warm-up", time.perf_counter()))
     batcher = eng._batcher
+    if batcher is None:
+        fail(f"{arch} is not on the continuous batcher")
     step_ms = []
     prefill_ms = []
     orig_decode, orig_prefill = batcher._decode_fn, batcher._prefill_fn
@@ -611,24 +817,28 @@ def serve_and_check(torch, eng, errs):
     launches = {"decode_attention": dec_ops.LAUNCHES,
                 "flash_attention": flash_ops.LAUNCHES}
     batcher._decode_fn, batcher._prefill_fn = orig_decode, orig_prefill
+    marks.append(("served", time.perf_counter()))
     after = eng.backend_stats()
     check_results(reqs, results)
     decode_steps = after["decode_steps"] - before["decode_steps"]
     prefill_tokens = after["prefill_tokens"] - before["prefill_tokens"]
     n_cls = sum(r.kind == "classify" for r in reqs)
     n_emb = sum(r.kind == "embed" for r in reqs)
-    passes = -(-n_cls // eng.max_batch) + -(-n_emb // eng.max_batch)
-    expect = {"decode_attention": cfg.num_layers * decode_steps,
-              "flash_attention": cfg.num_layers * passes}
-    print(f"served {len(reqs)} requests in {wall:.3f} s: {decode_steps} "
-          f"decode steps, {len(prefill_ms)} chunked-prefill steps "
-          f"({prefill_tokens} prompt tokens), {passes} full-sequence passes")
-    print(f"launches: {launches}, expected {expect}")
+    cls_passes = -(-n_cls // eng.max_batch)
+    passes = cls_passes + -(-n_emb // eng.max_batch)
+    expect = {"decode_attention": L * decode_steps,
+              "flash_attention": L * passes}
+    print(f"{arch} served {len(reqs)} requests in {wall:.3f} s: "
+          f"{decode_steps} decode steps, {len(prefill_ms)} chunked-prefill "
+          f"steps ({prefill_tokens} prompt tokens), {passes} full-sequence "
+          "passes")
+    print(f"{arch} launches: {launches}, expected {expect}")
     if launches != expect or min(launches.values()) == 0:
-        fail("kernel launch counts differ from the served path's steps")
+        fail(f"{arch}: kernel launch counts differ from the served path's "
+             "steps")
     med_step = statistics.median(step_ms) if step_ms else float("nan")
-    print(f"decode step: median {med_step:.3f} ms over {len(step_ms)} steps "
-          f"(B={eng.max_batch} slots); chunked prefill "
+    print(f"{arch} decode step: median {med_step:.3f} ms over {len(step_ms)} "
+          f"steps (B={eng.max_batch} slots); chunked prefill "
           f"{prefill_tokens / (sum(prefill_ms) / 1e3):.1f} tokens/s over "
           f"{len(prefill_ms)} steps")
 
@@ -636,36 +846,76 @@ def serve_and_check(torch, eng, errs):
     #    what went through the kernels to it: each decode step's logits
     #    (K1, both attentions on the same step state), CLASSIFY's label
     #    logprobs and EMBED's vectors (K2).  SCORE is chunked prefill only
-    #    on this backend and launches no kernel.
-    probe = []            # per decode step: rel. L2 error, max |err|, top-1
-    ref_ids, ref_lps = [], []
+    #    on this backend and launches no kernel.  The router tap records
+    #    each MoE layer's experts in the full-sequence passes of both runs
+    #    and in both attentions of each probed decode step
+    tap = RouterTap(cfg)
+    k_passes, p_passes = [], []
+    # per decode step: rel. L2 error of each active row, the rows, max
+    # |err|, same top-1 count, rows, expert flips
+    probe = []
+    deltas = []           # router-logit differences before a flip
+    ref_ids, ref_lps, ref_results = [], [], None
 
     def probed(tables, lens, act, cur):
         rows = act.bool()
-        lk = step_logits(batcher, tables, lens, cur, "auto")[rows]
-        lp = step_logits(batcher, tables, lens, cur, "reference")[rows]
-        rel = ((lk - lp).norm(dim=-1) / lp.norm(dim=-1)).max()
+        k_rec, p_rec = [], []
+        with tap.into(k_rec, "decode"):
+            lk = step_logits(batcher, tables, lens, cur, "auto")[rows]
+        with tap.into(p_rec, "decode"):
+            lp = step_logits(batcher, tables, lens, cur, "reference")[rows]
+        rel = (lk - lp).norm(dim=-1) / lp.norm(dim=-1)
         same = (lk.argmax(-1) == lp.argmax(-1)).sum()
-        probe.append((float(rel), max_err(lk, lp), int(same), int(rows.sum())))
+        ids = rows.nonzero().flatten().tolist()
+        flips = expert_flips(k_rec, p_rec, L) if tap.on else []
+        if tap.on:
+            deltas.append(max(router_delta(k_rec, p_rec, flips, r)
+                              for r in ids))
+        probe.append((rel.tolist(), ids, max_err(lk, lp), int(same),
+                      int(rows.sum()), flips))
         return orig_decode(tables, lens, act, cur)
 
-    batcher.decode_impl = "reference"
-    batcher._decode_fn = probed
-    with attention.use_flash_impl("reference"), \
-            Spy(eng, "_sequence_logprob",
-                lambda a, kw, out: ref_lps.extend(out[0])), \
-            Spy(tok, "decode",
-                lambda a, kw, out: ref_ids.append(list(a[0]))):
-        ref_results = eng.submit_batch(reqs)
-    batcher._decode_fn = orig_decode
-    batcher.decode_impl = "auto"
+    passes_of = [r for r in reqs if r.kind in ("classify", "embed")]
+    k_lps = lps
+    k_emb = k_emb_served = [r.embedding for r in results
+                            if r.kind == "embed"]
+    with tap.installed():
+        if tap.on:
+            # the full-sequence passes again on the kernel path, recorded
+            # (the timed run above is kept free of the tap's work)
+            k_lps = []
+            with tap.into(k_passes, "train"), \
+                    Spy(eng, "_sequence_logprob",
+                        lambda a, kw, out: k_lps.extend(out[0])):
+                again = eng.submit_batch(passes_of)
+            k_emb = [r.embedding for r in again if r.kind == "embed"]
+            same = k_emb == k_emb_served and k_lps == lps
+            print(f"{arch} CLASSIFY and EMBED passes again with the router "
+                  f"tap: bitwise equal to the served run {same}")
+        batcher.decode_impl = "reference"
+        batcher._decode_fn = probed
+        try:
+            with attention.use_flash_impl("reference"), \
+                    tap.into(p_passes, "train"), \
+                    Spy(eng, "_sequence_logprob",
+                        lambda a, kw, out: ref_lps.extend(out[0])), \
+                    Spy(tok, "decode",
+                        lambda a, kw, out: ref_ids.append(list(a[0]))):
+                ref_results = eng.submit_batch(reqs)
+        finally:
+            batcher._decode_fn = orig_decode
+            batcher.decode_impl = "auto"
     check_results(reqs, ref_results)
-    logits_rel = max(p[0] for p in probe)
-    logits_abs = max(p[1] for p in probe)
-    top1 = (sum(p[2] for p in probe), sum(p[3] for p in probe))
-    d_lp = max(abs(a - b) for a, b in zip(lps, ref_lps))
-    cos = min(sum(x * y for x, y in zip(a.embedding, b.embedding))
-              for a, b in zip(results, ref_results) if a.kind == "embed")
+    marks.append(("plain run and probes", time.perf_counter()))
+    if tap.on and not (len(k_passes) == len(p_passes) == passes * L):
+        fail(f"{arch}: router tap recorded {len(k_passes)} / "
+             f"{len(p_passes)} MoE layers for {passes} passes")
+    rels = [e for p in probe for e in p[0]]
+    logits_abs = max(p[2] for p in probe)
+    top1 = (sum(p[3] for p in probe), sum(p[4] for p in probe))
+    d_lp = max(abs(a - b) for a, b in zip(k_lps, ref_lps))
+    cos = min(sum(x * y for x, y in zip(a, b.embedding)) for a, b in
+              zip(k_emb, [r for r in ref_results if r.kind == "embed"]))
     agree = []            # matching leading tokens / tokens generated
     for a, b in zip(ids, ref_ids):
         n = 0
@@ -674,33 +924,93 @@ def serve_and_check(torch, eng, errs):
         agree.append(f"{n}/{max(len(a), len(b))}")
     same_label = sum(a.label == b.label for a, b in zip(results, ref_results)
                      if a.kind == "classify")
-    tol = SERVE_TOL["proxy-8b"]
-    print(f"kernel vs plain, K1: decode-step logits over {len(probe)} steps "
-          f"max rel. L2 err {logits_rel:.3g} (tol "
+    tol = SERVE_TOL[arch]
+    print(f"{arch} kernel vs plain, K1: decode-step logits over {len(probe)} "
+          f"steps max rel. L2 err {max(rels):.3g} (tol "
           f"{tol['decode_logits_rel']}), max |err| {logits_abs:.3g}, "
           f"same top-1 token {top1[0]}/{top1[1]} rows")
-    print(f"kernel vs plain, K2: CLASSIFY label logprobs {len(lps)} pairs "
-          f"max |err| {d_lp:.3g} nats (tol {tol['classify_logprob']}), "
-          f"labels same {same_label}/{n_cls}; EMBED min cosine {cos:.6f} "
+    print(f"{arch} kernel vs plain, K2: CLASSIFY label logprobs {len(lps)} "
+          f"pairs max |err| {d_lp:.3g} nats (tol {tol['classify_logprob']}),"
+          f" labels same {same_label}/{n_cls}; EMBED min cosine {cos:.6f} "
           f"(tol {tol['embed_cosine']})")
-    print(f"COMPLETE leading tokens equal {agree} (not gated: greedy argmax "
-          "over near-flat random logits can flip on bf16 rounding)")
+    print(f"{arch} COMPLETE leading tokens equal {agree} (not gated: greedy "
+          "argmax over near-flat random logits can flip on bf16 rounding)")
     if len(lps) != len(ref_lps) or not lps or not probe:
-        fail("the served path ran no CLASSIFY pass or no decode step")
-    if not (logits_rel <= tol["decode_logits_rel"]
-            and d_lp <= tol["classify_logprob"]
-            and cos >= tol["embed_cosine"]):
-        fail("the kernel-served and plain-served results disagree")
+        fail(f"{arch}: the served path ran no CLASSIFY pass or no decode "
+             "step")
+    # decode rows past the gate, each excused only by a flip in its row
+    bad = []
+    for step, (rel, rows, *_, flips) in enumerate(probe):
+        for row, e in zip(rows, rel):
+            if e > tol["decode_logits_rel"]:
+                first = first_flips(flips, row)
+                bad.append((step, row, e, first, explained(first)))
+    # CLASSIFY and EMBED passes, whose rows share expert capacity
+    pass_ok = {"classify": d_lp <= tol["classify_logprob"],
+               "embed": cos >= tol["embed_cosine"]}
+    pass_first = {}
+    if tap.on:
+        pflips = [expert_flips(k_passes[i * L:(i + 1) * L],
+                               p_passes[i * L:(i + 1) * L], L)
+                  for i in range(passes)]
+        deltas += [router_delta(k_passes[i * L:(i + 1) * L],
+                                p_passes[i * L:(i + 1) * L], pflips[i])
+                   for i in range(passes)]
+        pass_first = {"classify": first_flips(
+            [f for fl in pflips[:cls_passes] for f in fl]),
+            "embed": first_flips([f for fl in pflips[cls_passes:]
+                                  for f in fl])}
+        by_layer = {}
+        for fl in [p[-1] for p in probe] + pflips:
+            for f in fl:
+                by_layer[f[0]] = by_layer.get(f[0], 0) + 1
+        decisions = (sum(int(r["chosen"].shape[0]) for r in k_passes)
+                     + sum(len(p[1]) for p in probe) * L)
+        firsts = sorted(f[3] for p in probe for row in p[1]
+                        for f in first_flips(p[-1], row)
+                        if f[3] is not None)
+        clean = [e for p in probe for row, e in zip(p[1], p[0])
+                 if not first_flips(p[-1], row)]
+        print(f"{arch} router flips (tokens whose experts differ, kernel vs "
+              f"plain path) by layer: {dict(sorted(by_layer.items()))} over "
+              f"{decisions} token-layer decisions; router-logit "
+              "difference up to each row's (pass's) first flip: max "
+              f"{max(deltas):.4g}; decode rows without a "
+              f"flip: max rel. L2 err {max(clean, default=0.0):.3g}; "
+              "first-flip plain margins of decode rows "
+              f"{[float(f'{m:.4g}') for m in firsts]}; of the "
+              f"CLASSIFY pass: {fmt_flips(pass_first['classify']) or 'none'};"
+              f" of the EMBED pass: {fmt_flips(pass_first['embed']) or 'none'}"
+              f" (band {ROUTER_MARGIN_TOL})")
+    for step, row, e, first, ok in bad:
+        print(f"{arch} decode step {step} row {row}: rel. L2 err {e:.3g} past "
+              f"{tol['decode_logits_rel']}; "
+              + (f"excused by {fmt_flips(first)}" if ok else
+                 f"first flips: {fmt_flips(first) or 'none'}: NOT excused"))
+    for kind, ok in pass_ok.items():
+        if not ok:
+            first = pass_first.get(kind, [])
+            print(f"{arch} {kind} pass past its gate; "
+                  + (f"excused by {fmt_flips(first)}" if explained(first)
+                     else f"first flips: {fmt_flips(first) or 'none'}: NOT "
+                     "excused"))
+    unexcused = ([b for b in bad if not b[4]]
+                 + [k for k, ok in pass_ok.items()
+                    if not ok and not explained(pass_first.get(k, []))])
+    if unexcused:
+        fail(f"{arch}: the kernel-served and plain-served results disagree")
 
     # 5. profile one served batch: device busy share and top kernels
+    marks.append(("gates", time.perf_counter()))
     profile_served(torch, eng, reqs)
+    marks.append(("profile", time.perf_counter()))
 
     # 6. time each kernel at the served inputs with the most work (K1: the
     #    decode step with the most valid keys; K2: the largest pass) and at
     #    the model's long shapes, beside its plain version, its bound and
     #    SDPA
     if not k1_passes or not k2_passes:
-        fail("the served path launched a kernel no time")
+        fail(f"{arch}: the served path launched a kernel no time")
     k1_keys = [int(a[3].clamp(max=a[1].shape[1]).sum())
                for _, a, _ in k1_passes]
     k1_served = k1_passes[k1_keys.index(max(k1_keys))]
@@ -713,6 +1023,9 @@ def serve_and_check(torch, eng, errs):
         err = gate_err(name, t.pop("max_abs_err"), args[0].dtype)
         errs[name] = max(errs[name], err)
         rows.append(kernel_row(name, launches[name], errs[name], t))
+    marks.append(("K1 / K2 timing", time.perf_counter()))
+    print(f"{arch} phase seconds: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (_, t0), (a, t1) in zip(marks, marks[1:])))
     return rows
 
 
@@ -906,6 +1219,63 @@ def serve_static(torch, arch, kernels, per_pass, per_step):
     profile_served(torch, eng, reqs)
     return eng, {name: [(a, kw) for _, a, kw in first[name]]
                  for name in kernels}, launches
+
+
+def zoo_path(torch, errs):
+    """The zoo's qk-norm, parallel-block and MoE decoders, each alone on
+    the card at full width (depth cut only as ZOO_CUTS says), built from
+    the seed in bf16 on the card and served through ``serve_and_check``:
+    decode steps through K1, CLASSIFY and EMBED passes through K2.
+    Returns their kernels-line rows."""
+    from repro_torch.configs import base as cfgs
+    from repro_torch.inference.engine import TorchInferenceEngine
+    rows = []
+    for arch in ZOO:
+        cfg = full = cfgs.get_config(arch)
+        if arch in ZOO_CUTS:
+            n, why = ZOO_CUTS[arch]
+            cfg = dataclasses.replace(full, num_layers=n)
+            cut = f"depth cut to {n} of {full.num_layers} layers: {why}"
+        else:
+            cut = f"depth not cut ({full.num_layers} layers)"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = TorchInferenceEngine(cfg, smoke=False, seed=SEED)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        leaves = list(_leaves(eng.params))
+        n_params = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        feats = [f for f, on in (("qk-norm", cfg.qk_norm),
+                                 ("LayerNorm", cfg.use_layernorm),
+                                 ("parallel block", cfg.parallel_block),
+                                 ("tied embedding", cfg.tie_embeddings))
+                 if on]
+        if cfg.moe is not None:
+            m = cfg.moe
+            feats.append(f"MoE {m.num_experts} experts (padded to "
+                         f"{m.padded_num_experts}) top-{m.num_experts_per_tok}"
+                         + (", fused shared expert" if m.num_shared_experts
+                            else ""))
+        print(f"engine: {arch} {cfg.num_layers} layers d_model {cfg.d_model} "
+              f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim} "
+              f"vocab {cfg.vocab_size} rope theta {cfg.rope_theta:g} "
+              f"{cfg.dtype} [{', '.join(feats) or 'dense'}], "
+              f"{n_params / 1e9:.2f} B params, {n_bytes / 1e9:.1f} GB, "
+              f"backend {eng.backend}, built in {built:.1f} s; {cut}")
+        if eng.cfg != dataclasses.replace(full, num_layers=cfg.num_layers):
+            fail(f"{arch} is not at full width")
+        t0 = time.perf_counter()
+        rows += [r | {"path": arch} for r in serve_and_check(torch, eng,
+                                                             errs)]
+        print(f"{arch}: phase {time.perf_counter() - t0:.1f} s, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del eng, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 def most_work(calls, work):
@@ -2346,6 +2716,8 @@ def main() -> int:
     # 9-10. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
     rows += rwkv_path(torch, errs)
     rows += recurrentgemma_path(torch, errs)
+    # 11. the zoo: qk-norm, parallel blocks and mixtures of experts (K1, K2)
+    rows += zoo_path(torch, errs)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2447,27 +2819,57 @@ def long_shapes(torch, dec_ops, flash_ops, dev):
 
 
 def profile_served(torch, eng, reqs):
+    """Profile one served batch: the card's busy time (the union of the
+    intervals of every kernel and copy it ran, from the profiler's raw
+    device events) against the batch's wall time, and the kernels that
+    took most of it.  The raw events are read as they are: building the
+    profiler's op tree for a batch of ~10^5 launches takes minutes, and
+    its per-op device times count each kernel under its op and again as
+    itself."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.submit_batch(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us == 0:
+    launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES - launched
+    spans, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        t, d = e.start_ns(), e.duration_ns()
+        spans.append((t, t + d))
+        n, total = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (n + 1, total + d)
+    if not spans:
         print("profile: no device time recorded (not measured)")
         return
+    spans.sort()
+    busy_ns, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_ns += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy_ns += hi - lo
+    ours = sum(n for name, (n, _) in by_name.items()
+               if any(k in name for k in ("decode_bf16_kernel",
+                                          "decode_f32_kernel",
+                                          "flash_attention_kernel",
+                                          "flash_attention_wgmma_kernel")))
     print(f"profile: served batch wall {wall * 1e3:.1f} ms (profiler on), "
-          f"device busy {busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
-    events.sort(key=lambda e: -e.self_device_time_total)
-    for e in events[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
+          f"device busy {busy_ns / 1e6:.1f} ms, idle share "
+          f"{1 - busy_ns / 1e9 / wall:.3f}; {len(spans)} device events, "
+          f"K1 / K2 launches recorded {ours} of {launched}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, total) in top[:12]:
+        print(f"  {total / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -186,9 +186,12 @@ class ModelConfig:
 
 
 # Architectures the port implements: the dense global-attention decoders
-# of the cascade pair, the attention-free RWKV-6 model and the RG-LRU /
-# local-attention hybrid.
-PORTED_IDS = ("proxy-8b", "oracle-70b", "rwkv6-1.6b", "recurrentgemma-9b")
+# (the cascade pair, qwen3-32b with qk-norm, command-r-35b with parallel
+# blocks, minitron-8b), the mixture-of-experts decoders, the
+# attention-free RWKV-6 model and the RG-LRU / local-attention hybrid.
+PORTED_IDS = ("proxy-8b", "oracle-70b", "rwkv6-1.6b", "recurrentgemma-9b",
+              "qwen3-32b", "command-r-35b", "minitron-8b",
+              "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
 
 # Every architecture the JAX package hosts; the ones missing from
 # PORTED_IDS are queued for later slices of the port.
@@ -203,6 +206,11 @@ _MODULE_FOR = {
     "oracle-70b": "oracle_70b",
     "rwkv6-1.6b": "rwkv6_16b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen3-32b": "qwen3_32b",
+    "command-r-35b": "command_r_35b",
+    "minitron-8b": "minitron_8b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a27b",
 }
 
 

@@ -1,13 +1,15 @@
 """Model blocks: the PyTorch counterpart of ``repro.models.blocks``.
 
 The port implements the global- and sliding-window attention blocks
-(``ATTN``, ``LOCAL_ATTN``) with the dense gated MLP, the RG-LRU recurrent
-block (``RGLRU``, recurrentgemma) and the RWKV-6 block (``RWKV``).  Every
-block has three entry points behind one interface:
+(``ATTN``, ``LOCAL_ATTN``, with qk-norm and parallel attention + MLP as
+options) with the dense gated MLP or a token-choice mixture of experts,
+the RG-LRU recurrent block (``RGLRU``, recurrentgemma) and the RWKV-6
+block (``RWKV``).  Every block has three entry points behind one
+interface:
 
     block_init(blk, gen, cfg, dtype)          -> params
     block_cache_init(blk, cfg, batch, smax)   -> cache (decode state)
-    block_apply(blk, params, x, ctx)          -> (y, new_cache)
+    block_apply(blk, params, x, ctx)          -> (y, new_cache, aux_loss)
 
 ``ctx.mode`` is one of "train" (no cache), "prefill" (full sequence, writes
 the cache), "decode" (new tokens against the cache).  Caches are updated in
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -72,16 +75,20 @@ class Ctx:
 
 
 # ===========================================================================
-# Attention block (global or sliding-window), GQA + RoPE
+# Attention block (global or sliding-window), GQA + RoPE (+ qk-norm)
 # ===========================================================================
 
 
 def attn_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
     d = cfg.d_model
-    return {"wq": dense_init(gen, d, cfg.q_dim, dtype),
-            "wk": dense_init(gen, d, cfg.kv_dim, dtype),
-            "wv": dense_init(gen, d, cfg.kv_dim, dtype),
-            "wo": dense_init(gen, cfg.q_dim, d, dtype)}
+    p = {"wq": dense_init(gen, d, cfg.q_dim, dtype),
+         "wk": dense_init(gen, d, cfg.kv_dim, dtype),
+         "wv": dense_init(gen, d, cfg.kv_dim, dtype),
+         "wo": dense_init(gen, cfg.q_dim, d, dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(cfg.head_dim, dtype, gen.device, False)
+        p["k_norm"] = norm_init(cfg.head_dim, dtype, gen.device, False)
+    return p
 
 
 def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
@@ -89,6 +96,10 @@ def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
     q = linear(x, params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = linear(x, params["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = linear(x, params["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        # RMSNorm over each head, after the projection and before RoPE
+        q = apply_norm(params["q_norm"], q, cfg.norm_eps)
+        k = apply_norm(params["k_norm"], k, cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -135,6 +146,127 @@ def attn_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *,
     shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ===========================================================================
+# MoE MLP (token-choice top-k with per-expert capacity)
+# ===========================================================================
+#
+# The single-device form of the JAX package's ``moe_apply``; its
+# expert-parallel ``shard_map`` branch comes with the sharding rules.
+
+
+def moe_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
+    """Router (fp32 [D, E_padded]) and stacked experts ``wi`` / ``wg``
+    [E, D, F], ``wo`` [E, F, D], each expert drawn as ``dense_init`` into
+    its slice of the stack (no fp32 copy of a stack), and the fused shared
+    expert where the config has one."""
+    m = cfg.moe
+    E = m.padded_num_experts
+    d, f = cfg.d_model, m.expert_d_ff
+
+    def stack(din, dout):
+        w = torch.empty((E, din, dout), dtype=dtype, device=gen.device)
+        for e in range(E):
+            w[e] = dense_init(gen, din, dout, dtype)
+        return w
+
+    p = {"router": {"w": dense_init(gen, d, E, torch.float32)},
+         "experts": {"wi": stack(d, f), "wg": stack(d, f),
+                     "wo": stack(f, d)}}
+    if m.num_shared_experts:
+        p["shared"] = mlp_init(gen, d, m.shared_d_ff, dtype)
+    return p
+
+
+def _top_k(x, k: int):
+    """The k largest entries along the last axis and their indices, ties
+    to the lower index as ``jax.lax.top_k`` breaks them: a stable
+    descending sort, sliced (``torch.topk`` promises no tie order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router_w, x2d, m: cfgs.MoEConfig):
+    """x2d [T, D] -> the renormalised top-k gates scattered to [T, E]
+    (fp32), and the load-balance aux loss.  Padding experts are masked to
+    -1e30 before the softmax, so they are never chosen."""
+    logits = x2d.float() @ router_w                        # [T, E] fp32
+    E = m.padded_num_experts
+    if E > m.num_experts:
+        real = torch.arange(E, device=logits.device) < m.num_experts
+        logits = torch.where(real[None], logits,
+                             torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = _top_k(probs, m.num_experts_per_tok)
+    topv = topv / topv.sum(-1, keepdim=True)
+    gates = torch.zeros_like(probs).scatter_(1, topi, topv)
+    # Switch-style load balance aux loss (over the true experts only)
+    frac_tokens = (gates > 0).float().mean(0)
+    frac_probs = probs.mean(0)
+    aux = m.num_experts * (frac_tokens * frac_probs).sum()
+    return gates, aux * m.router_aux_loss
+
+
+def _moe_local(x2d, gates, wi, wg, wo, capacity: int):
+    """Run tokens through the experts.
+
+    x2d [T, D]; gates [T, E]; wi / wg [E, D, F]; wo [E, F, D].  Each
+    expert takes up to ``capacity`` tokens by gate priority (ties to the
+    lower token index; the rest are dropped, as under a capacity factor)
+    and weights its output by the gate.  Returns the [T, D] sum of each
+    token's expert outputs.  Each expert holds a token at most once, so
+    every expert's outputs are scattered into a plane of their own and
+    the planes summed: the same sum on every run, where an accumulating
+    scatter on the card may add in any order.
+    """
+    T, D = x2d.shape
+    E = wi.shape[0]
+    g, idx = _top_k(gates.T, min(capacity, T))             # [E, C]
+    tok = x2d[idx]                                         # [E, C, D]
+    valid = g > 0
+    h = torch.bmm(tok, wi)
+    gate = torch.bmm(tok, wg)
+    h = F.silu(gate.float()).to(h.dtype) * h
+    out = torch.bmm(h, wo)                                 # [E, C, D]
+    out = out * (g * valid)[..., None].to(out.dtype)
+    planes = out.new_zeros((E, T, D))
+    planes.scatter_(1, idx[..., None].expand(-1, -1, D), out)
+    return planes.sum(0)
+
+
+def _capacity(m: cfgs.MoEConfig, t_loc: int, mode: str) -> int:
+    """Per-expert token capacity.  Decode is dropless (every expert runs
+    all T tokens); train and prefill take ceil(k * T * factor / experts)
+    over the unpadded expert count, T counting padding tokens."""
+    if mode == "decode":
+        return t_loc
+    return min(t_loc, max(1, math.ceil(
+        m.num_experts_per_tok * t_loc * m.capacity_factor / m.num_experts)))
+
+
+def moe_apply(params, x, ctx: Ctx):
+    """x [B, S, D] -> (y [B, S, D], aux loss): routed experts, plus the
+    fused shared expert where there is one."""
+    m = ctx.cfg.moe
+    B, S, D = x.shape
+    x2d = x.reshape(B * S, D)
+    gates, aux = _route(params["router"]["w"], x2d, m)
+    cap = _capacity(m, x2d.shape[0], ctx.mode)
+    e = params["experts"]
+    y2d = _moe_local(x2d, gates, e["wi"], e["wg"], e["wo"], cap)
+    y = y2d.reshape(B, S, D).to(x.dtype)
+    if m.num_shared_experts:
+        y = y + apply_mlp(params["shared"], x)
+    return y, aux
+
+
+def _ffn(params, h, ctx: Ctx):
+    """The block's feed-forward on ``h``: the mixture of experts where the
+    config has one, else the gated MLP.  Returns (out, aux loss)."""
+    if ctx.cfg.moe is not None:
+        return moe_apply(params["moe"], h, ctx)
+    return apply_mlp(params["mlp"], h), 0.0
 
 
 # ===========================================================================
@@ -372,10 +504,14 @@ def rwkv_cache_init(cfg: cfgs.ModelConfig, batch: int, *, dtype, device):
 def block_init(blk: str, gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
     dev = gen.device
     if blk in (cfgs.ATTN, cfgs.LOCAL_ATTN):
-        return {"ln1": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
-                "ln2": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
-                "attn": attn_init(gen, cfg, dtype),
-                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+        p = {"ln1": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
+             "ln2": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
+             "attn": attn_init(gen, cfg, dtype)}
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        return p
     if blk == cfgs.RGLRU:
         return {"ln1": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
                 "ln2": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
@@ -402,19 +538,28 @@ def block_cache_init(blk: str, cfg: cfgs.ModelConfig, batch: int, smax: int,
 
 
 def block_apply(blk: str, params, x, ctx: Ctx):
+    """One block: (y, new_cache, aux loss), the aux loss 0.0 outside a
+    mixture of experts.  With ``parallel_block`` the attention and the
+    feed-forward both read ln1(x) and y = x + attn + ffn; ``ln2`` is
+    built and carried all the same, as in the JAX package."""
     cfg = ctx.cfg
     if blk in (cfgs.ATTN, cfgs.LOCAL_ATTN):
         window = cfg.attention_window if blk == cfgs.LOCAL_ATTN else 0
         h1 = apply_norm(params["ln1"], x, cfg.norm_eps)
         a_out, new_cache = attn_apply(params["attn"], h1, ctx, window=window)
+        if cfg.parallel_block:
+            m_out, aux = _ffn(params, h1, ctx)
+            return x + a_out + m_out, new_cache, aux
     elif blk == cfgs.RGLRU:
         h1 = apply_norm(params["ln1"], x, cfg.norm_eps)
         a_out, new_cache = rglru_apply(params["rec"], h1, ctx)
     elif blk == cfgs.RWKV:
         # rwkv_apply does its own norms, residuals and token-shift state
-        return rwkv_apply(params, x, ctx)
+        y, new_cache = rwkv_apply(params, x, ctx)
+        return y, new_cache, 0.0
     else:
         raise NotImplementedError(f"block {blk!r} is not yet ported")
     x = x + a_out
     h2 = apply_norm(params["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h2), new_cache
+    m_out, aux = _ffn(params, h2, ctx)
+    return x + m_out, new_cache, aux

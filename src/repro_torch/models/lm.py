@@ -94,8 +94,9 @@ def _default_positions(cfg, batch, x, mode, lengths):
 
 def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
     """Run the backbone.  Returns a dict with hidden [B,S,D] (train),
-    last_hidden [B,D] (prefill) or hidden [B,S,D] (decode), and the cache
-    (prefill / decode)."""
+    last_hidden [B,D] (prefill) or hidden [B,S,D] (decode), the cache
+    (prefill / decode) and ``aux``, the summed load-balance loss of the
+    mixture-of-experts layers (an fp32 scalar, 0 without them)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = _embed(cfg, params, batch)
@@ -114,6 +115,7 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
                      valid=valid)
     n = len(cfg.period)
     n_body = cfg.num_periods * n
+    aux = 0.0             # a tensor once a mixture-of-experts layer adds
     for layer, (blk, p) in enumerate(zip(cfg.block_pattern,
                                          params["layers"])):
         c = None
@@ -123,17 +125,20 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
                 c = {k: t[layer // n] for k, t in pc.items()}
             else:
                 c = cache["tail"][f"t{layer - n_body}"]
-        x, _ = blocks.block_apply(blk, p, x, ctx.replace(cache=c))
+        x, _, a = blocks.block_apply(blk, p, x, ctx.replace(cache=c))
+        aux = aux + a
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
 
     if mode == "train":
-        return {"hidden": x}
+        return {"hidden": x, "aux": aux}
     cache["len"] = lengths
     if mode == "prefill":
         bidx = torch.arange(B, device=x.device)
         last = (lengths - 1).clamp(0, S - 1).long()
-        return {"last_hidden": x[bidx, last], "cache": cache}
-    return {"hidden": x, "cache": cache}
+        return {"last_hidden": x[bidx, last], "cache": cache, "aux": aux}
+    return {"hidden": x, "cache": cache, "aux": aux}
 
 
 def cache_capacity(cache) -> int:

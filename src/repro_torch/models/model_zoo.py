@@ -1,8 +1,9 @@
 """Model interface of the PyTorch port: ``build(arch)`` returns a
 :class:`Model` with init/apply/cache entry points, for the decoders the
-port implements so far: dense global attention, sliding-window
-attention, RG-LRU and RWKV-6 blocks, with tail blocks and tied or scaled
-embeddings."""
+port implements so far: dense global attention (with qk-norm and
+parallel attention + MLP blocks as options), mixture-of-experts
+feed-forwards, sliding-window attention, RG-LRU and RWKV-6 blocks, with
+tail blocks and tied or scaled embeddings."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,14 +29,11 @@ class Model:
 
 def _unported_features(cfg: cfgs.ModelConfig):
     feats = {
-        "mixture of experts": cfg.moe is not None,
         "encoder-decoder": cfg.is_encoder_decoder,
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
         "learned positions": cfg.learned_pos_embed,
         "M-RoPE": bool(cfg.mrope_sections),
-        "qk norm": cfg.qk_norm,
         "biases": cfg.use_bias,
-        "parallel blocks": cfg.parallel_block,
     }
     return [name for name, on in feats.items() if on]
 

@@ -100,6 +100,19 @@ QUERIES = {"filter_cascade": _filter, "classify": _classify,
 def _run(pkg, backends, name):
     """One query through ``pkg``'s AisqlEngine over ``backends``; returns
     (rows, report numbers, {(model, prompt): score}, cascade taus)."""
+    api = pkg[2]
+    sched = api.Scheduler()
+    for be in backends:
+        sched.register(be)
+    client = api.CortexClient(sched, default_model="oracle-70b",
+                              proxy_model="proxy-8b",
+                              pipeline=api.PipelineConfig())
+    return _query(pkg, client, backends, name)
+
+
+def _query(pkg, client, backends, name):
+    """One query through ``pkg``'s AisqlEngine on ``client``, whose
+    scheduler hosts ``backends``; the SCOREs they compute are recorded."""
     core, D, api, kw = pkg
     scores = {}
     for be in backends:
@@ -113,12 +126,6 @@ def _run(pkg, backends, name):
             return out
         be.submit_batch = spy
     try:
-        sched = api.Scheduler()
-        for be in backends:
-            sched.register(be)
-        client = api.CortexClient(sched, default_model="oracle-70b",
-                                  proxy_model="proxy-8b",
-                                  pipeline=api.PipelineConfig())
         cat, sql, ekw = QUERIES[name](core, D)
         eng = core.AisqlEngine(cat, client, **kw, **ekw)
         out = eng.sql(sql)
@@ -144,16 +151,11 @@ def _flip_margin(row_text, scores, taus):
                if row_text in prompt for t in thresholds)
 
 
-@pytest.mark.parametrize("name", list(QUERIES))
-def test_sql_matches_jax_over_engines(engines, name):
-    jpkg = (jcore, jD, japi, {})
-    tpkg = (tcore, tD, tapi, {"device": "cpu"})
-    j = _run(jpkg, [engines[a][0] for a in PAIR], name)
-    t = _run(tpkg, [engines[a][1] for a in PAIR], name)
+def _hold_to_jax(name, j, t, pair):
     assert t[1] == j[1]                      # calls, credits, per model
     assert j[1][0] > 0
     if name == "filter_cascade":
-        assert set(j[1][2]) == set(PAIR)      # both models of the pair
+        assert set(j[1][2]) == set(pair)      # both models of the pair
         # every SCORE within VALUE_TOL of JAX's, on the same prompts
         assert set(t[2]) == set(j[2])
         assert max(abs(t[2][k] - j[2][k]) for k in j[2]) <= VALUE_TOL
@@ -169,6 +171,61 @@ def test_sql_matches_jax_over_engines(engines, name):
         assert [r for r in t[0][1] if r not in flipped] == keep
     else:
         assert t[0] == j[0]
+
+
+@pytest.mark.parametrize("name", list(QUERIES))
+def test_sql_matches_jax_over_engines(engines, name):
+    jpkg = (jcore, jD, japi, {})
+    tpkg = (tcore, tD, tapi, {"device": "cpu"})
+    j = _run(jpkg, [engines[a][0] for a in PAIR], name)
+    t = _run(tpkg, [engines[a][1] for a in PAIR], name)
+    _hold_to_jax(name, j, t, PAIR)
+
+
+# ---------------------------------------------------------------------------
+# a cascade over the zoo: qwen2-moe-a2.7b as proxy, qwen3-32b as oracle
+# ---------------------------------------------------------------------------
+
+ZOO_PAIR = ("qwen2-moe-a2.7b", "qwen3-32b")      # (proxy, oracle)
+
+
+@pytest.fixture(scope="module")
+def zoo_clients():
+    """``make_engine_client`` of both packages over the zoo pair (fp32
+    smoke engines; the port's params converted from the JAX engines')."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jcfgs, "get_smoke_config", _fp32(jcfgs.get_smoke_config))
+    mp.setattr(tcfgs, "get_smoke_config", _fp32(tcfgs.get_smoke_config))
+    try:
+        jc = japi.make_engine_client(ZOO_PAIR, seed=3,
+                                     pipeline=japi.PipelineConfig())
+        tc = tapi.make_engine_client(ZOO_PAIR, seed=3,
+                                     pipeline=tapi.PipelineConfig(),
+                                     device="cpu")
+    finally:
+        mp.undo()
+    backends = {}
+    for arch in ZOO_PAIR:
+        (je,), (te,) = jc.scheduler.replicas(arch), tc.scheduler.replicas(arch)
+        te.params = bridge.params_from_jax(
+            te.cfg, jax.tree.map(np.asarray, je.params))
+        backends[arch] = (je, te)
+    return jc, tc, backends
+
+
+@pytest.mark.parametrize("name", ["filter_cascade", "classify"])
+def test_sql_matches_jax_over_zoo_engines(zoo_clients, name):
+    """The cascade AI_FILTER (SCORE on the MoE proxy and the qk-norm
+    oracle) and AI_CLASSIFY (label passes on the oracle): rows, calls and
+    credits equal, SCOREs within VALUE_TOL."""
+    jc, tc, backends = zoo_clients
+    assert jc.proxy_model == tc.proxy_model == ZOO_PAIR[0]
+    assert jc.default_model == tc.default_model == ZOO_PAIR[1]
+    j = _query((jcore, jD, japi, {}), jc,
+               [backends[a][0] for a in ZOO_PAIR], name)
+    t = _query((tcore, tD, tapi, {"device": "cpu"}), tc,
+               [backends[a][1] for a in ZOO_PAIR], name)
+    _hold_to_jax(name, j, t, ZOO_PAIR)
 
 
 # ---------------------------------------------------------------------------

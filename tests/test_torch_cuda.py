@@ -475,6 +475,62 @@ def test_recurrent_smoke_model_through_kernels(cuda, arch):
         torch.testing.assert_close(a, b, **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("arch", ["qwen3-32b", "command-r-35b",
+                                  "minitron-8b", "phi3.5-moe-42b-a6.6b",
+                                  "qwen2-moe-a2.7b"])
+def test_zoo_smoke_model_through_kernels(cuda, arch):
+    """The zoo's smoke models with qk-norm, parallel blocks and mixtures
+    of experts in fp32, at head_dim 64 (K1 and K2 take 64, 128, 256): a
+    ragged prefill launches K2 once a layer, each decode step K1 once a
+    layer, and logits and the MoE aux loss equal the plain path's (every
+    attention through its plain version) within 2e-4."""
+    cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32",
+                              head_dim=64)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(gen)
+    L = cfg.num_layers
+    B, S = 2, 40
+    toks = torch.randint(4, cfg.vocab_size, (B, S), generator=gen,
+                         device=cuda)
+    lens = torch.tensor([40, 29], dtype=torch.int32, device=cuda)
+
+    def serve(reference):
+        ctx = contextlib.ExitStack()
+        if reference:
+            ctx.enter_context(attention.use_flash_impl("reference"))
+            ctx.enter_context(attention.use_decode_impl("reference"))
+        with ctx:
+            cache = model.init_cache(B, 64, device=cuda)
+            before = (flash_ops.LAUNCHES, dec_ops.LAUNCHES)
+            out = model.apply(params, {"tokens": toks, "lengths": lens},
+                              mode="prefill", cache=cache)
+            logits = [model.logits_of(params, out["last_hidden"])]
+            aux = [out["aux"]]
+            got = [(flash_ops.LAUNCHES - before[0],
+                    dec_ops.LAUNCHES - before[1])]
+            for step in range(4):
+                before = (flash_ops.LAUNCHES, dec_ops.LAUNCHES)
+                out = model.apply(params, {"tokens": toks[:, step:step + 1]},
+                                  mode="decode", cache=cache)
+                logits.append(model.logits_of(params, out["hidden"][:, 0]))
+                aux.append(out["aux"])
+                got.append((flash_ops.LAUNCHES - before[0],
+                            dec_ops.LAUNCHES - before[1]))
+        return logits, aux, got
+
+    logits, aux, got = serve(False)
+    ref, ref_aux, ref_got = serve(True)
+    torch.cuda.synchronize()
+    assert got[0] == (L, 0) and all(g == (0, L) for g in got[1:])
+    assert all(g == (0, 0) for g in ref_got)
+    for a, b in zip(logits, ref):
+        torch.testing.assert_close(a, b, **TOL[torch.float32])
+    for a, b in zip(aux, ref_aux):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert (float(aux[0]) > 0) == (cfg.moe is not None)
+
+
 # ---------------------------------------------------------------------------
 # K3: similarity top-k
 # ---------------------------------------------------------------------------

@@ -58,13 +58,17 @@ def test_configs_match_the_reference():
                 == dataclasses.asdict(jcfgs.get_config(arch)))
         assert (dataclasses.asdict(tcfgs.get_smoke_config(arch))
                 == dataclasses.asdict(jcfgs.get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError):
-        tcfgs.get_config("qwen3-32b")
+    # still unported: the encoder-decoder, M-RoPE, and hd 160 (stablelm)
+    for arch in ("whisper-base", "stablelm-12b", "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError):
+            tcfgs.get_config(arch)
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-model")
-    with pytest.raises(NotImplementedError):
-        model_zoo.build(dataclasses.replace(tcfgs.get_smoke_config(
-            "proxy-8b"), qk_norm=True))
+    smoke = tcfgs.get_smoke_config("proxy-8b")
+    for feature in (dict(mrope_sections=(4, 2, 2)),
+                    dict(is_encoder_decoder=True)):
+        with pytest.raises(NotImplementedError):
+            model_zoo.build(dataclasses.replace(smoke, **feature))
 
 
 def test_bridge_layout_and_bf16(models):

@@ -251,7 +251,7 @@ def test_block_matches_jax(arch, blk, pos):
         tctx = blocks.Ctx(cfg=tcfg, mode=mode,
                           positions=torch.from_numpy(np.array(jpos)),
                           lengths=tl, valid=tv, cache=tcache)
-        ty, tc = blocks.block_apply(blk, tp, torch.from_numpy(xs), tctx)
+        ty, tc, _ = blocks.block_apply(blk, tp, torch.from_numpy(xs), tctx)
         np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
         if jc is not None:
             _close(tc, jc)
