@@ -45,7 +45,13 @@ shared expert), each alone on the card at full width on the continuous
 batcher, with the same gates; for the two mixtures of experts it counts
 the tokens whose experts differ between the kernel and plain paths and
 excuses a gap only where such a flip lies within a stated margin of the
-plain router's decision.
+plain router's decision; the zoo phase ends with stablelm-12b (LayerNorm,
+parallel blocks, K1 and K2 at head dim 160).  Then whisper-base (an
+encoder-decoder over audio frames: K2 without the causal mask for the
+encoder and the cross-attention, a decode step's one query included) and
+qwen2-vl-7b (16 patches before the text, M-RoPE; its SCORE and CLASSIFY
+raise as the JAX engine's do, and the script checks that they do) are
+served at full width and depth on the static path, with the same gates.
 Last it times each kernel beside its plain version, its bound and, where
 one exists, one PyTorch library call.  The last line is a JSON object with
 ``"ok": true``; any failed check exits non-zero without it.  It needs no
@@ -98,6 +104,20 @@ SERVE_TOL = {
     "recurrentgemma-9b": {"decode_logits_rel": 0.08,
                           "score_logits_rel": 0.08,
                           "classify_logprob": 0.05, "embed_cosine": 0.9995},
+    # the last three of the zoo, stated before their first run on the
+    # card at about two to three times the dense zoo's readings above:
+    # stablelm-12b (40 layers, LayerNorm, parallel blocks, K1 and K2 at hd
+    # 160) on the continuous batcher as command-r-35b; whisper-base (6
+    # encoder and 6 decoder layers, every attention through K2 or K1) and
+    # qwen2-vl-7b (28 layers, 16 patches before the text, M-RoPE) on the
+    # static path, whose SCORE gate holds every prefill's logits.
+    # qwen2-vl serves no CLASSIFY (it raises, as in the JAX package)
+    "stablelm-12b": {"decode_logits_rel": 0.05, "classify_logprob": 0.1,
+                     "embed_cosine": 0.9995},
+    "whisper-base": {"decode_logits_rel": 0.05, "score_logits_rel": 0.05,
+                     "classify_logprob": 0.05, "embed_cosine": 0.9995},
+    "qwen2-vl-7b": {"decode_logits_rel": 0.05, "score_logits_rel": 0.05,
+                    "embed_cosine": 0.9995},
 }
 # AISQL phase, kernel path vs plain path (PERF.md, section 6): a cascade
 # row may be kept by one path only if a plain SCORE of it lies within
@@ -130,11 +150,12 @@ HTTP_LOGIT_TOL = 0.0
 ORACLE_LAYERS = 20
 # the zoo phase: decoders with qk-norm (qwen3-32b), parallel blocks and a
 # tied 256000-row embedding (command-r-35b), a 256000-row vocabulary
-# (minitron-8b) and mixtures of experts (phi3.5-moe, qwen2-moe), each alone
-# on the card at full width.  Depth is cut only where the bf16 weights do
-# not fit beside the served batch; each cut with its reason
+# (minitron-8b), mixtures of experts (phi3.5-moe, qwen2-moe) and head dim
+# 160 (stablelm-12b), each alone on the card at full width.  Depth is cut
+# only where the bf16 weights do not fit beside the served batch; each cut
+# with its reason
 ZOO = ("qwen3-32b", "command-r-35b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
-       "qwen2-moe-a2.7b")
+       "qwen2-moe-a2.7b", "stablelm-12b")
 ZOO_CUTS = {"phi3.5-moe-42b-a6.6b": (
     24, "all 32 layers hold 83.8 GB of bf16, more than the card's 80 GB")}
 # MoE models, kernel path vs plain path: K1 and K2 differ from their plain
@@ -242,18 +263,41 @@ def device_ms(fn, iters: int = 20):
     Where a call is short, the events of ``cuda_time_ms`` time the host's
     launches instead.  Averaged over the launches recorded, not over
     ``iters``: a profiler session after an earlier one in the same process
-    may not record every launch.  None where it records no device time."""
+    may not record every launch, and after the served batches' profiles
+    some short sessions recorded none.  Each session idles the host
+    ``wait`` seconds before its first launch, which made that rarer, and
+    one that records nothing is made once more with a longer wait.  None
+    where neither records device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
-             if e.self_device_time_total > 0 and e.count)
-    return us / 1e3 if us else None
+    for wait in (0.05, 0.5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(wait)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for name, _, d in device_events(prof):
+            n, total = by_name.get(name, (0, 0))
+            by_name[name] = (n + 1, total + d)
+        ns = sum(total / n for n, total in by_name.values())
+        if ns:
+            return ns / 1e6
+    return None
+
+
+def device_events(prof):
+    """(name, start ns, duration ns) of every device event (kernel, copy)
+    that a profiler session recorded, read from its raw events: building
+    the op tree of ``key_averages()`` over ~10^5 launches takes minutes,
+    and its per-op device times count each kernel under its op and again
+    as itself."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def fmt_ms(x) -> str:
@@ -385,6 +429,8 @@ def check_kernels(torch, dec_ops, flash_ops, dev):
                      "disagrees with its plain version")
             errs["flash_attention"] = max(errs["flash_attention"], e)
     check_attention_hd256(torch, dec_ops, flash_ops, dev, gen, errs)
+    check_attention_hd160_and_cross(torch, dec_ops, flash_ops, dev, gen,
+                                    errs)
     return errs
 
 
@@ -433,6 +479,59 @@ def check_attention_hd256(torch, dec_ops, flash_ops, dev, gen, errs):
                      "with its plain version")
             errs["flash_attention@hd256"] = max(
                 errs.get("flash_attention@hd256", 0.0), e)
+
+
+def check_attention_hd160_and_cross(torch, dec_ops, flash_ops, dev, gen,
+                                    errs):
+    """K1 and K2 at stablelm-12b's attention widths (32 q heads on 8 kv
+    heads, hd 160: the served batch's kinds of lengths and the full shapes,
+    a 512-slot cache and S = 384), and K2 without the causal mask at
+    whisper-base's (8 heads, 8 kv heads, hd 64): the encoder's
+    self-attention over its 1500 frames, a pass's cross-attention (64
+    tokens) and a decode step's (one query) over them."""
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        B, H, KV, hd, Smax = 8, 32, 8, 160, 512
+        q, kc, vc = r(B, 1, H, hd), r(B, Smax, KV, hd), r(B, Smax, KV, hd)
+        lengths = torch.tensor([1, 31, 33, 100, 512, 64, 65, 500],
+                               dtype=torch.int32, device=dev)
+        out, lse = dec_ops.flash_decode(q, kc, vc, lengths, return_lse=True)
+        ref, ref_lse = dec_ops.flash_decode(q, kc, vc, lengths,
+                                            impl="reference",
+                                            return_lse=True)
+        torch.cuda.synchronize()
+        e, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+        print(f"K1 decode {name} B={B} H={H} KV={KV} hd={hd} Smax={Smax} "
+              f"lengths={lengths.tolist()}: max|out-plain|={e:.3g} "
+              f"max|lse-plain|={e_lse:.3g} (tol {TOL[name]})")
+        if not (e <= TOL[name] and e_lse <= TOL["float32"]):
+            fail(f"K1 {name} hd {hd} disagrees with its plain version")
+        errs["decode_attention@hd160"] = max(
+            errs.get("decode_attention@hd160", 0.0), e)
+        cases = [(2, H, KV, hd, Sq, Skv, True)
+                 for Sq, Skv in ((1, 1), (37, 37), (128, 128), (384, 384),
+                                 (128, 384))]
+        cases += [(b, 8, 8, 64, Sq, 1500, False)
+                  for b, Sq in ((2, 1500), (8, 64), (8, 1))]
+        for b, h, kv, d, Sq, Skv, causal in cases:
+            q, k, v = r(b, Sq, h, d), r(b, Skv, kv, d), r(b, Skv, kv, d)
+            out = flash_ops.flash_attention(q, k, v, causal=causal)
+            ref = flash_ops.flash_attention(q, k, v, causal=causal,
+                                            impl="reference")
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            print(f"K2 flash {name} B={b} H={h} KV={kv} hd={d} Sq={Sq} "
+                  f"Skv={Skv} causal={causal}: max|out-plain|={e:.3g} (tol "
+                  f"{TOL[name]})")
+            if not e <= TOL[name]:
+                fail(f"K2 {name} hd {d} Sq={Sq} Skv={Skv} causal={causal} "
+                     "disagrees with its plain version")
+            key = "flash_attention@" + ("hd160" if causal else "cross")
+            errs[key] = max(errs.get(key, 0.0), e)
 
 
 def decays(torch, gen, shape, dev):
@@ -1066,18 +1165,23 @@ def rel_rows(a, b) -> float:
                   / b.float().norm(dim=-1)).max())
 
 
-def serve_static(torch, arch, kernels, per_pass, per_step):
-    """Serve the mixed batch with ``arch`` at full width on the static
-    path through the kernels, then through their plain versions, and gate
-    on launch counts, well-formed results and kernel-vs-plain agreement
-    (SCORE prefill logits, decode-step logits on the same state, CLASSIFY
-    logprobs, EMBED cosine).  ``kernels`` maps each kernel name to
-    (ops module, wrapper name); ``per_pass`` / ``per_step`` give its
-    launches per full-sequence pass and per decode step.  Returns the
-    engine, the requests and the first launch of each kernel in each
-    pass: {name: [(args, kwargs), ...]}."""
+def serve_static(torch, arch, kernels, per_pass, per_step, kinds=None):
+    """Serve the mixed batch (its requests of ``kinds``, all if None) with
+    ``arch`` at full width on the static path through the kernels, then
+    through their plain versions, and gate on launch counts, well-formed
+    results and kernel-vs-plain agreement (every prefill's logits,
+    decode-step logits on the same state, CLASSIFY logprobs, EMBED
+    cosine).  ``kernels`` maps each kernel name to (ops module, wrapper
+    name); ``per_pass`` / ``per_step`` give its launches per
+    full-sequence pass and per decode step.  Returns the engine, the first
+    launch of each kernel in each run of launches of one shape in a pass
+    ({name: [(args, kwargs), ...]}), the launch counts and {"passes": n,
+    "steps": n}."""
     from repro_torch.inference.engine import TorchInferenceEngine
     from repro_torch.inference import tokenizer as tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = TorchInferenceEngine(arch, smoke=False, seed=SEED)
     torch.cuda.synchronize()
@@ -1092,7 +1196,7 @@ def serve_static(torch, arch, kernels, per_pass, per_step):
           "depth not cut")
     if eng.backend != "static":
         fail(f"{arch} is not on the static path")
-    reqs = requests(arch)
+    reqs = [r for r in requests(arch) if kinds is None or r.kind in kinds]
     eng.submit_batch(reqs[:1] + reqs[-1:])          # warm-up
     model = eng.model
     modes = []
@@ -1111,7 +1215,8 @@ def serve_static(torch, arch, kernels, per_pass, per_step):
     first = {}
     spies = []
     for name, (mod, fn) in kernels.items():
-        first[name], rec = first_launch_per_pass(lambda a: len(modes))
+        first[name], rec = first_launch_per_pass(
+            lambda a: (len(modes), tuple(a[0].shape), tuple(a[1].shape)))
         spies.append(Spy(mod, fn, rec))
         mod.LAUNCHES = 0
     lps, scores, ids = [], [], []
@@ -1181,19 +1286,21 @@ def serve_static(torch, arch, kernels, per_pass, per_step):
         eng.model = model
     check_results(reqs, ref_results)
     tol = SERVE_TOL[arch]
-    if (len(lps) != len(ref_lps) or not lps or not probe
-            or len(scores) != len(ref_scores)):
-        fail(f"{arch}: the served path ran no CLASSIFY pass or no decode "
-             "step, or the two runs prefilled differently")
+    classify = any(r.kind == "classify" for r in reqs)
+    if (len(lps) != len(ref_lps) or bool(lps) != classify or not probe
+            or not scores or len(scores) != len(ref_scores)):
+        fail(f"{arch}: the served path ran no CLASSIFY pass, no prefill or "
+             "no decode step, or the two runs prefilled differently")
     score_rel = max(rel_rows(a, b) for a, b in zip(scores, ref_scores))
     logits_rel = max(p[0] for p in probe)
     logits_abs = max(p[1] for p in probe)
     top1 = (sum(p[2] for p in probe), sum(p[3] for p in probe))
-    d_lp = max(abs(a - b) for a, b in zip(lps, ref_lps))
+    d_lp = max((abs(a - b) for a, b in zip(lps, ref_lps)), default=0.0)
     cos = min(sum(x * y for x, y in zip(a.embedding, b.embedding))
               for a, b in zip(results, ref_results) if a.kind == "embed")
-    d_score = max(abs(a.score - b.score) for a, b in
-                  zip(results, ref_results) if a.kind == "score")
+    d_score = max((abs(a.score - b.score) for a, b in
+                   zip(results, ref_results) if a.kind == "score"),
+                  default=0.0)
     agree = []
     for a, b in zip(ids, ref_ids):
         n = 0
@@ -1208,17 +1315,20 @@ def serve_static(torch, arch, kernels, per_pass, per_step):
           f"{logits_abs:.3g}, same top-1 token {top1[0]}/{top1[1]} rows")
     print(f"{arch} kernel vs plain: CLASSIFY label logprobs {len(lps)} "
           f"pairs max |err| {d_lp:.3g} nats (tol "
-          f"{tol['classify_logprob']}); EMBED min cosine {cos:.6f} (tol "
-          f"{tol['embed_cosine']}); COMPLETE leading tokens equal {agree} "
-          "(not gated)")
+          f"{tol.get('classify_logprob', 'none: no CLASSIFY')}); EMBED min "
+          f"cosine {cos:.6f} (tol {tol['embed_cosine']}); COMPLETE leading "
+          f"tokens equal {agree} (not gated)")
     if not (score_rel <= tol["score_logits_rel"]
             and logits_rel <= tol["decode_logits_rel"]
-            and d_lp <= tol["classify_logprob"]
+            and (not classify or d_lp <= tol["classify_logprob"])
             and cos >= tol["embed_cosine"]):
         fail(f"{arch}: the kernel-served and plain-served results disagree")
     profile_served(torch, eng, reqs)
-    return eng, {name: [(a, kw) for _, a, kw in first[name]]
-                 for name in kernels}, launches
+    print(f"{arch}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return (eng, {name: [(a, kw) for _, a, kw in first[name]]
+                  for name in kernels}, launches,
+            {"passes": passes, "steps": steps})
 
 
 def zoo_path(torch, errs):
@@ -1268,13 +1378,151 @@ def zoo_path(torch, errs):
         if eng.cfg != dataclasses.replace(full, num_layers=cfg.num_layers):
             fail(f"{arch} is not at full width")
         t0 = time.perf_counter()
-        rows += [r | {"path": arch} for r in serve_and_check(torch, eng,
-                                                             errs)]
+        got = serve_and_check(torch, eng, errs)
+        if cfg.head_dim == 160:           # K1 and K2 at hd 160's full shapes
+            got = [r | full_shapes(torch, r["name"], cfg) for r in got]
+        rows += [r | {"path": arch} for r in got]
         print(f"{arch}: phase {time.perf_counter() - t0:.1f} s, peak device "
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
         del eng, leaves
         gc.collect()
         torch.cuda.empty_cache()
+    return rows
+
+
+def full_shapes(torch, name, cfg):
+    """Kernel ``name`` (K1 or K2) timed at the model's full attention
+    shapes, as ``long_shapes`` times proxy-8b's: K1 over a full 512-slot
+    cache of 8 rows, K2 over an 8-row, 384-token prefill.  Returns the
+    timings as ``full_*`` keys of the kernel's row."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    if name == "decode_attention":
+        t = time_decode(torch, dec_ops, r(8, 1, H, hd), r(8, 512, KV, hd),
+                        r(8, 512, KV, hd),
+                        torch.full((8,), 512, dtype=torch.int32, device=dev))
+    else:
+        t = time_flash(torch, flash_ops, r(8, 384, H, hd), r(8, 384, KV, hd),
+                       r(8, 384, KV, hd), iters=20)
+    gate_err(name, t.pop("max_abs_err"), torch.bfloat16)
+    return {f"full_{k}": v for k, v in t.items()}
+
+
+def whisper_path(torch, errs):
+    """whisper-base served at full width and depth on the static path
+    (frames from the requests; every attention through K2 or K1), then
+    K2 timed at each of its served shapes (the encoder's self-attention,
+    the decoder's causal self-attention, the cross-attention of a pass and
+    of a decode step) and K1 at its served decode step.  Returns their
+    kernels-line rows."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    E, L, Se = 6, 6, 1500
+    eng, calls, launches, counts = serve_static(
+        torch, "whisper-base",
+        {"flash_attention": (flash_ops, "flash_attention_cuda"),
+         "decode_attention": (dec_ops, "decode_attention_cuda")},
+        {"flash_attention": E + 2 * L, "decode_attention": 0},
+        {"flash_attention": L, "decode_attention": L})
+    cfg = eng.cfg
+    if (cfg.encoder_layers, cfg.num_layers, cfg.encoder_seq,
+            cfg.d_model) != (E, L, Se, 512):
+        fail("whisper-base is not at full width and depth")
+    passes, steps = counts["passes"], counts["steps"]
+    kinds = {"encoder self-attention": (lambda q, k: q == k == Se, E * passes),
+             "decoder self-attention": (lambda q, k: q == k != Se,
+                                        L * passes),
+             "cross-attention, a pass": (lambda q, k: 1 < q != k == Se,
+                                         L * passes),
+             "cross-attention, a decode step": (lambda q, k: q == 1 < k == Se,
+                                                L * steps)}
+    rows = []
+    for what, (match, n) in kinds.items():
+        got = [c for c in calls["flash_attention"]
+               if match(c[0][0].shape[1], c[0][1].shape[1])]
+        if not got:
+            fail(f"whisper-base: no served K2 launch of the {what}")
+        args, kw = most_work(got, lambda a: a[0].numel() * a[1].shape[1])
+        print(f"whisper-base K2, {what}:")
+        t = time_flash(torch, flash_ops, *args, **kw)
+        err = gate_err("K2", t.pop("max_abs_err"), args[0].dtype)
+        errs["flash_attention@cross"] = max(
+            errs.get("flash_attention@cross", 0.0), err)
+        rows.append(kernel_row("flash_attention", n, err, t,
+                               path=f"whisper-base: {what}"))
+    if sum(r["launches"] for r in rows) != launches["flash_attention"]:
+        fail("whisper-base: K2 launches by shape do not add up")
+    d_args, _ = most_work(calls["decode_attention"],
+                          lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
+    t = time_decode(torch, dec_ops, *d_args)
+    err = gate_err("K1", t.pop("max_abs_err"), d_args[0].dtype)
+    errs["decode_attention"] = max(errs["decode_attention"], err)
+    rows.append(kernel_row("decode_attention", launches["decode_attention"],
+                           err, t, path="whisper-base"))
+    del eng, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qwen2_vl_path(torch, errs):
+    """qwen2-vl-7b served at full width and depth on the static path: its
+    COMPLETE and EMBED requests (16 patches from each request before the
+    text, M-RoPE positions; K2 over the P + L tokens of a pass, K1 at
+    every decode step), then its SCORE and CLASSIFY, which raise as the
+    JAX engine's do (TypeError: the prefill's P + L positions overrun the
+    cache sized for L; KeyError: CLASSIFY's pass builds no patches).  K1
+    and K2 are timed at their served inputs with the most work.  Returns
+    their kernels-line rows."""
+    from repro_torch.inference.backend import CLASSIFY, COMPLETE, EMBED, SCORE
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    L = 28
+    eng, calls, launches, _ = serve_static(
+        torch, "qwen2-vl-7b",
+        {"flash_attention": (flash_ops, "flash_attention_cuda"),
+         "decode_attention": (dec_ops, "decode_attention_cuda")},
+        {"flash_attention": L, "decode_attention": 0},
+        {"flash_attention": 0, "decode_attention": L},
+        kinds=(COMPLETE, EMBED))
+    cfg = eng.cfg
+    if (cfg.num_layers, cfg.d_model, cfg.mrope_sections) != (
+            L, 3584, (16, 24, 24)):
+        fail("qwen2-vl-7b is not at full width and depth")
+    for kind, exc in ((SCORE, TypeError), (CLASSIFY, KeyError)):
+        req = [r for r in requests("qwen2-vl-7b") if r.kind == kind][:1]
+        try:
+            eng.submit_batch(req)
+        except exc as e:
+            print(f"qwen2-vl-7b {kind} raises {type(e).__name__}: {e} "
+                  "(as the JAX engine does)")
+        else:
+            fail(f"qwen2-vl-7b {kind} did not raise {exc.__name__}")
+    rows = []
+    f_args, f_kw = most_work(calls["flash_attention"],
+                             lambda a: a[0].numel())
+    t = time_flash(torch, flash_ops, *f_args, **f_kw)
+    err = gate_err("K2", t.pop("max_abs_err"), f_args[0].dtype)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    rows.append(kernel_row("flash_attention", launches["flash_attention"],
+                           err, t, path="qwen2-vl-7b"))
+    d_args, _ = most_work(calls["decode_attention"],
+                          lambda a: int(a[3].clamp(max=a[1].shape[1]).sum()))
+    t = time_decode(torch, dec_ops, *d_args)
+    err = gate_err("K1", t.pop("max_abs_err"), d_args[0].dtype)
+    errs["decode_attention"] = max(errs["decode_attention"], err)
+    rows.append(kernel_row("decode_attention", launches["decode_attention"],
+                           err, t, path="qwen2-vl-7b"))
+    del eng, calls
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1339,7 +1587,7 @@ def rwkv_path(torch, errs):
     the most work and at the full shape.  Returns K5's kernels-line row."""
     from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
     L = 24
-    eng, calls, launches = serve_static(
+    eng, calls, launches, _ = serve_static(
         torch, "rwkv6-1.6b", {"rwkv6_scan": (rwkv_ops, "rwkv6_scan_cuda")},
         {"rwkv6_scan": L}, {"rwkv6_scan": L})
     if eng.cfg.num_layers != L or eng.cfg.d_model != 2048:
@@ -1374,7 +1622,7 @@ def recurrentgemma_path(torch, errs):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     n_lru, n_local = 26, 12
-    eng, calls, launches = serve_static(
+    eng, calls, launches, _ = serve_static(
         torch, "recurrentgemma-9b",
         {"rglru_scan": (rglru_ops, "rglru_scan_cuda"),
          "flash_attention": (flash_ops, "flash_attention_cuda"),
@@ -2716,8 +2964,13 @@ def main() -> int:
     # 9-10. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
     rows += rwkv_path(torch, errs)
     rows += recurrentgemma_path(torch, errs)
-    # 11. the zoo: qk-norm, parallel blocks and mixtures of experts (K1, K2)
+    # 11. the zoo: qk-norm, parallel blocks, mixtures of experts and hd 160
+    #     (K1, K2)
     rows += zoo_path(torch, errs)
+    # 12. whisper-base (encoder-decoder) and qwen2-vl-7b (patches, M-RoPE)
+    #     on the static path (K1, K2)
+    rows += whisper_path(torch, errs)
+    rows += qwen2_vl_path(torch, errs)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2820,13 +3073,8 @@ def long_shapes(torch, dec_ops, flash_ops, dev):
 
 def profile_served(torch, eng, reqs):
     """Profile one served batch: the card's busy time (the union of the
-    intervals of every kernel and copy it ran, from the profiler's raw
-    device events) against the batch's wall time, and the kernels that
-    took most of it.  The raw events are read as they are: building the
-    profiler's op tree for a batch of ~10^5 launches takes minutes, and
-    its per-op device times count each kernel under its op and again as
-    itself."""
-    from torch.autograd import DeviceType
+    intervals of every kernel and copy it ran, from ``device_events``)
+    against the batch's wall time, and the kernels that took most of it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -2839,13 +3087,10 @@ def profile_served(torch, eng, reqs):
         wall = time.perf_counter() - t0
     launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES - launched
     spans, by_name = [], {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        t, d = e.start_ns(), e.duration_ns()
+    for name, t, d in device_events(prof):
         spans.append((t, t + d))
-        n, total = by_name.get(e.name(), (0, 0))
-        by_name[e.name()] = (n + 1, total + d)
+        n, total = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, total + d)
     if not spans:
         print("profile: no device time recorded (not measured)")
         return

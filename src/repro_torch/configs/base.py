@@ -2,8 +2,8 @@
 
 Every hosted architecture is described by a :class:`ModelConfig`, plain data
 kept field for field equal to the JAX package's, so that one configuration
-means the same model in both packages.  Only the architectures whose blocks
-the port implements resolve here; every other known id raises.
+means the same model in both packages.  Every architecture the JAX package
+hosts resolves here; an unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -186,15 +186,17 @@ class ModelConfig:
 
 
 # Architectures the port implements: the dense global-attention decoders
-# (the cascade pair, qwen3-32b with qk-norm, command-r-35b with parallel
-# blocks, minitron-8b), the mixture-of-experts decoders, the
-# attention-free RWKV-6 model and the RG-LRU / local-attention hybrid.
+# (the cascade pair, qwen3-32b with qk-norm, command-r-35b and
+# stablelm-12b with parallel blocks, minitron-8b), the mixture-of-experts
+# decoders, the attention-free RWKV-6 model, the RG-LRU / local-attention
+# hybrid, the whisper encoder-decoder and the qwen2-vl decoder with
+# patches and M-RoPE: every architecture the JAX package hosts.
 PORTED_IDS = ("proxy-8b", "oracle-70b", "rwkv6-1.6b", "recurrentgemma-9b",
               "qwen3-32b", "command-r-35b", "minitron-8b",
-              "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
+              "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b", "stablelm-12b",
+              "whisper-base", "qwen2-vl-7b")
 
-# Every architecture the JAX package hosts; the ones missing from
-# PORTED_IDS are queued for later slices of the port.
+# Every architecture the JAX package hosts.
 KNOWN_IDS = (
     "recurrentgemma-9b", "command-r-35b", "qwen3-32b", "stablelm-12b",
     "minitron-8b", "whisper-base", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
@@ -211,15 +213,15 @@ _MODULE_FOR = {
     "minitron-8b": "minitron_8b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
+    "stablelm-12b": "stablelm_12b",
+    "whisper-base": "whisper_base",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 
 def _module(arch: str):
-    if arch not in KNOWN_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(KNOWN_IDS)}")
     if arch not in _MODULE_FOR:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported; ported: {list(PORTED_IDS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(KNOWN_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
 
 

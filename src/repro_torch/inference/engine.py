@@ -19,6 +19,11 @@ same ``submit_batch`` backend protocol:
   * per-request credit metering and latency accounting;
   * fault injection (EngineFailure) for the scheduler's retry logic.
 
+Modality front ends are stubs, as in the JAX package: an audio model's
+frames and a vision model's patches are deterministic pseudo-embeddings
+of the request's ``metadata["file"]`` (else its prompt), and a patches
+model gets M-RoPE positions for its P patches and S text tokens.
+
 The engine runs on a CUDA device unless the caller passes ``device="cpu"``;
 it never falls back to the CPU on its own.
 """
@@ -129,13 +134,47 @@ class TorchInferenceEngine:
             toks[i, :len(e)] = e[:L]
         return toks, np.minimum(lens, L), L
 
+    def _modality_batch(self, requests: Sequence[Request], B: int,
+                        S: int) -> Dict[str, torch.Tensor]:
+        """The front end's inputs for a batch of S text tokens: ``frames``
+        [B, encoder_seq, D]; or ``patches`` [B, P, D] with P =
+        min(num_patches, 16) and M-RoPE ``positions`` [B, P + S, 3] (the
+        patches at t = 0 on a side x side grid, the text at 1 .. S on all
+        three streams)."""
+        extra: Dict[str, np.ndarray] = {}
+        cfg = self.cfg
+        if cfg.frontend == "frames":
+            extra["frames"] = np.stack([
+                _hash_embed(r.metadata.get("file", r.prompt)[:128],
+                            (cfg.encoder_seq, cfg.d_model))
+                for r in requests])
+        if cfg.frontend == "patches":
+            P = min(cfg.num_patches, 16)
+            extra["patches"] = np.stack([
+                _hash_embed(r.metadata.get("file", r.prompt)[:128],
+                            (P, cfg.d_model)) for r in requests])
+            side = max(int(np.sqrt(P)), 1)
+            pos = np.zeros((B, P + S, 3), np.int32)
+            ar = np.arange(P)
+            pos[:, :P, 1] = ar // side
+            pos[:, :P, 2] = ar % side
+            pos[:, P:, :] = np.arange(S)[None, :, None] + 1
+            extra["positions"] = pos
+        return {k: self._tensor(v) for k, v in extra.items()}
+
     def _prefill(self, requests: Sequence[Request], cap: Optional[int] = None,
                  extra_capacity: int = 0):
+        """Prefill of the prompts into a cache of L + extra_capacity rows
+        (L: their bucketed length).  A patches model's pass is P tokens
+        longer than that, as in the JAX package: its cache takes a SCORE's
+        pass only with extra_capacity >= P, and raises ``TypeError``
+        otherwise."""
         cap = cap or self.max_seq
         toks, lens, L = self._encode_batch([r.prompt for r in requests], cap)
         cache = self.model.init_cache(len(requests), L + extra_capacity,
                                       device=self.device)
-        batch = {"tokens": self._tensor(toks), "lengths": self._tensor(lens)}
+        batch = {"tokens": self._tensor(toks), "lengths": self._tensor(lens),
+                 **self._modality_batch(requests, len(requests), L)}
         out = self.model.apply(self.params, batch, mode="prefill",
                                cache=cache)
         logits = self.model.logits_of(self.params, out["last_hidden"])
@@ -232,7 +271,14 @@ class TorchInferenceEngine:
             toks[i, :len(s)] = s
             msk[i, :len(m)] = m
         tokens = self._tensor(toks)
-        out = self.model.apply(self.params, {"tokens": tokens}, mode="train")
+        batch = {"tokens": tokens}
+        if self.cfg.frontend == "frames":
+            # silence (zero frames) in bf16, as the JAX package feeds it;
+            # a patches model gets none and raises KeyError, as JAX's does
+            batch["frames"] = torch.zeros(
+                (B, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        out = self.model.apply(self.params, batch, mode="train")
         logits = self.model.logits_of(self.params, out["hidden"])
         logp = torch.log_softmax(logits.float(), dim=-1)
         # hidden[t] predicts token[t+1]
@@ -251,10 +297,11 @@ class TorchInferenceEngine:
         t0 = time.perf_counter() if t0 is None else t0
         toks, lens, L = self._encode_batch([r.prompt for r in requests],
                                            self.max_seq)
-        out = self.model.apply(self.params, {"tokens": self._tensor(toks)},
-                               mode="train")
-        h = out["hidden"].float()                              # [B, L, D]
-        mask = (torch.arange(L, device=self.device)[None, :]
+        batch = {"tokens": self._tensor(toks),
+                 **self._modality_batch(requests, len(requests), L)}
+        out = self.model.apply(self.params, batch, mode="train")
+        h = out["hidden"].float()                   # [B, L (+ P patches), D]
+        mask = (torch.arange(h.shape[1], device=self.device)[None, :]
                 < self._tensor(lens)[:, None]).float()
         pooled = ((h * mask[..., None]).sum(1)
                   / mask.sum(1, keepdim=True).clamp_min(1.0))

@@ -159,10 +159,20 @@ __device__ void combine(float* part, float* wts, const Params& p, int b,
 // bf16: mma.sync over a cp.async ring
 // ---------------------------------------------------------------------------
 
+// A bf16 row of HD values is HD / 8 chunks of 16 bytes; in shared memory
+// it takes a whole number of 8-chunk groups (128 bytes), so that the
+// swizzle below, which XORs a chunk's index with row % 8, keeps every
+// chunk inside its row.  HD = 160 (20 chunks) takes 24: chunks 16-19 land
+// on 16-23, and the 4 chunks a row has left over are never read.
+template <int HD>
+__host__ __device__ constexpr int smem_row_bytes() {
+  return (HD / 8 + 7) / 8 * 128;
+}
+
 template <int HD>
 struct Bf16Shape {
   static constexpr int STAGES = HD >= 256 ? 2 : 3;
-  static constexpr int ROW_BYTES = HD * 2;
+  static constexpr int ROW_BYTES = smem_row_bytes<HD>();
   static constexpr int TILE = TK * ROW_BYTES;        // one of K, V
   static constexpr int RING = STAGES * 2 * TILE;
   static constexpr int SCRATCH = NW * part_floats<HD>() * 4;  // over the ring
@@ -173,10 +183,10 @@ struct Bf16Shape {
 
 // byte offset of 16-byte chunk `ch` of row `row` in a [rows][HD] bf16 tile,
 // the chunks of each row permuted by row % 8 so that ldmatrix's eight row
-// reads fall on distinct banks
+// reads fall on distinct banks (rows are a multiple of 128 bytes apart)
 template <int HD>
 __device__ __forceinline__ int swz(int row, int ch) {
-  return row * (HD * 2) + ((ch ^ (row & 7)) << 4);
+  return row * smem_row_bytes<HD>() + ((ch ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -588,8 +598,8 @@ bool aligned16(const void* ptr, const long long* strides, int n, int elem) {
 // NULL.  The last dim of every tensor is contiguous.  strides[10] =
 // {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh}, in elements.
 // Returns the cudaError_t of the launch, or ERR_UNSUPPORTED (-1) where the
-// kernel cannot take the input: hd not 64, 128 or 256, more than 16 q heads
-// a kv head, or rows of q, k, v or out not 16-byte aligned.
+// kernel cannot take the input: hd not 64, 128, 160 or 256, more than 16 q
+// heads a kv head, or rows of q, k, v or out not 16-byte aligned.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const int* lengths,
                                       void* out, float* lse, int dtype, int B,
@@ -602,7 +612,8 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int elem = dtype == repro::DTYPE_BF16 ? 2 : 4;
-  if (G < 1 || G > ROWS || (hd != 64 && hd != 128 && hd != 256) ||
+  if (G < 1 || G > ROWS ||
+      (hd != 64 && hd != 128 && hd != 160 && hd != 256) ||
       !aligned16(q, strides, 2, elem) || !aligned16(k, strides + 2, 3, elem) ||
       !aligned16(v, strides + 5, 3, elem) ||
       !aligned16(out, strides + 8, 2, elem))
@@ -639,6 +650,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   switch (hd) {
     case 64: err = launch_hd<64>(bf16, splits, KV, B, p, s); break;
     case 128: err = launch_hd<128>(bf16, splits, KV, B, p, s); break;
+    case 160: err = launch_hd<160>(bf16, splits, KV, B, p, s); break;
     default: err = launch_hd<256>(bf16, splits, KV, B, p, s); break;
   }
   return (int)err;

@@ -25,7 +25,9 @@
 // -> P V of each tile.  The bf16 design answers with persistent blocks
 // whose producer loads the next unit while the consumers finish this
 // one, and with one K/V load per GQA group instead of one per q head (G
-// = 4 for proxy-8b, 16 for recurrentgemma).
+// = 4 for proxy-8b, 16 for recurrentgemma).  Head dims 64, 128, 160 and
+// 256; 160 (stablelm-12b) is computed at 192 in shared memory (see
+// FlashShape).
 //
 // Two variants:
 //   bf16 (the served model): warp-specialized, TMA-fed, wgmma; see
@@ -214,20 +216,30 @@ constexpr int ERR_UNSUPPORTED = -1;
 constexpr int BKV = 64;          // keys of a K/V tile
 constexpr int CHUNK = 64;        // columns of a swizzled 128-byte row
 
+// A head dim that is not a multiple of CHUNK (160: 2.5 chunks) is laid
+// out in shared memory as HDP = the next multiple (192): the tensor maps
+// keep the true HD, so TMA fills the columns past it with zeros.  S = Q K^T
+// runs its k-steps over the true HD only; O += P V runs over HDP (the
+// zero columns of V give zero columns of O, never stored), since wgmma
+// reads the 128-byte-swizzled V tile in whole 64-column chunks.  That costs
+// 20 % more P V work at HD = 160 and keeps every operand in the layout the
+// other head dims use.
+//
 // NC consumer warpgroups of 64 rows each and one producer warp: two at
-// HD <= 128; one at HD = 256, whose O accumulator alone takes 128
-// registers a thread.  A block of one warpgroup and a warp (160 threads)
-// may use 255 registers a thread; with two (288 threads, which the card
-// allocates as 384) only 168, and the HD = 256 consumer would spill.
+// HD <= 128; one at HD = 160 and 256, whose O accumulators alone take 96
+// and 128 registers a thread.  A block of one warpgroup and a warp (160
+// threads) may use 255 registers a thread; with two (288 threads, which
+// the card allocates as 384) only 168, and those consumers would spill.
 template <int HD>
 struct FlashShape {
-  static constexpr int NC = HD == 256 ? 1 : 2;
+  static constexpr int HDP = (HD + CHUNK - 1) / CHUNK * CHUNK;
+  static constexpr int NC = HD > 128 ? 1 : 2;
   static constexpr int BM = 64 * NC;                 // rows of a unit
   static constexpr int THREADS = NC * WG + 32;
-  static constexpr int CHUNKS = HD / CHUNK;
-  static constexpr int STAGES = HD == 256 ? 2 : (HD == 128 ? 3 : 4);
-  static constexpr int Q_BYTES = BM * HD * 2;
-  static constexpr int KV_BYTES = BKV * HD * 2;       // K or V of a tile
+  static constexpr int CHUNKS = HDP / CHUNK;
+  static constexpr int STAGES = HD == 256 ? 2 : (HD == 64 ? 4 : 3);
+  static constexpr int Q_BYTES = BM * HDP * 2;
+  static constexpr int KV_BYTES = BKV * HDP * 2;      // K or V of a tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_BYTES = 8 * (2 * STAGES + 2);
   // + 1024: the dynamic base is aligned up to the swizzle atom
@@ -354,13 +366,21 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+// O[64 x HDP] += P V for one 16-key slab of V whose chunk 0 starts at
+// ``v``: 64-column chunks BKV * 128 bytes apart, 8-key groups 1024 apart
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
-  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
-  if constexpr (HD == 256) wgmma_rs_n256(o, a, db);
+                                         uint32_t v) {
+  const uint64_t db = sw128_desc(v, BKV * 128, 1024);
+  if constexpr (HDP == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HDP == 192) {     // chunks 0-1, then chunk 2
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, db);
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[64]), a,
+                 sw128_desc(v + 2 * BKV * 128, BKV * 128, 1024));
+  }
+  if constexpr (HDP == 256) wgmma_rs_n256(o, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -378,6 +398,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
     float scale) {
   using F = FlashShape<HD>;
+  constexpr int HDP = F::HDP;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;                              // Q: CHUNKS x 16 KB
@@ -436,7 +457,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
       const Unit w = unit(u);
       // the consumers' last S of the previous unit has read Q
       if (q_round > 0) mbar_wait(q_empty, (q_round - 1) & 1);
-      mbar_expect_tx(q_full, rows * HD * 2);
+      mbar_expect_tx(q_full, rows * HDP * 2);   // TMA counts the fill too
       for (int c = 0; c < F::CHUNKS; ++c)
         tma_load_4d(sq + c * BM * 128, &q_map, q_full, c * CHUNK,
                     w.kvh * G, w.q0, w.b);
@@ -469,9 +490,9 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
     const int pos[2] = {w.q0 + r0 / G, w.q0 + (r0 + 8) / G};
     const int qp[2] = {pos[0] + q_off, pos[1] + q_off};
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-    float o[HD / 2];
+    float o[HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
     mbar_wait(q_full, q_round & 1);
     for (int i = 0; i < w.n_tiles; ++i, ++it) {
       const int s = it % F::STAGES;
@@ -481,7 +502,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
       const int kt = w.k_begin + i * BKV;
 
       // S = Q K^T: 16 columns (32 bytes) a step within each 64-column
-      // chunk; 8-row groups 1024 bytes apart
+      // chunk; 8-row groups 1024 bytes apart; the true HD columns only
       float sc[32];
       wgmma_fence();
 #pragma unroll
@@ -539,11 +560,10 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
         l[r] = l[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < HDP / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
       // O += P V: P's accumulators of key blocks 2u, 2u+1 are the A
-      // operand of step u; V (keys x HD, HD contiguous) is MN-major: 8-key
-      // groups 1024 bytes apart, 64-column chunks BKV * 128 bytes apart
+      // operand of step u; V (keys x HDP, HDP contiguous) is MN-major
       uint32_t pa[4][4];
 #pragma unroll
       for (int u4 = 0; u4 < 4; ++u4) {
@@ -555,8 +575,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int u4 = 0; u4 < 4; ++u4)
-        wgmma_pv<HD>(o, pa[u4],
-                     sw128_desc(v_src + u4 * 16 * 128, BKV * 128, 1024));
+        wgmma_pv<HDP>(o, pa[u4], v_src + u4 * 16 * 128);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -687,6 +706,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
     case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -699,7 +719,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh}.
 // Returns the cudaError_t of the launch, or ERR_UNSUPPORTED (-1) where
 // the bf16 kernel cannot take the input: more q heads a kv head than a
-// unit has rows (BM: 128, 64 at hd 256), or a tensor TMA cannot read
+// unit has rows (BM: 128, 64 at hd 160 and 256), or a tensor TMA cannot read
 // (strides not 16-byte multiples, a base not 16-byte aligned).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int dtype,

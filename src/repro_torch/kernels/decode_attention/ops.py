@@ -25,7 +25,7 @@ LIB = build.CudaLibrary("decode_attention.cu", {
         ctypes.c_char_p, ctypes.c_float, ctypes.c_void_p],
 })
 _pack_strides = struct.Struct("10q").pack   # the entry point's strides[10]
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 160, 256)
 GROUPS = range(1, 17)        # q heads a kv head: one block holds them all
 # returned by the entry point where the kernel cannot take an input
 ERR_UNSUPPORTED = -1

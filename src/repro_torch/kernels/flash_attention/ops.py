@@ -24,7 +24,7 @@ LIB = build.CudaLibrary("flash_attention.cu", {
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 })
 _pack_strides = struct.Struct("12q").pack   # the entry point's strides[12]
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 160, 256)
 # returned by the entry point where the bf16 kernel cannot take an input
 ERR_UNSUPPORTED = -1
 

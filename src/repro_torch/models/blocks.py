@@ -2,7 +2,8 @@
 
 The port implements the global- and sliding-window attention blocks
 (``ATTN``, ``LOCAL_ATTN``, with qk-norm and parallel attention + MLP as
-options) with the dense gated MLP or a token-choice mixture of experts,
+options, biases where the config has them, RoPE or M-RoPE) with the
+dense gated MLP or a token-choice mixture of experts,
 the RG-LRU recurrent block (``RGLRU``, recurrentgemma) and the RWKV-6
 block (``RWKV``).  Every block has three entry points behind one
 interface:
@@ -65,7 +66,7 @@ def use_scan_impl(impl: str):
 class Ctx:
     cfg: cfgs.ModelConfig
     mode: str                       # train | prefill | decode
-    positions: Any                  # [B,S] int
+    positions: Any                  # [B,S] int or [B,S,3] (M-RoPE)
     lengths: Optional[Any] = None   # [B] valid tokens incl. current step
     valid: Optional[Any] = None     # [B,S] bool: pad mask for prefill
     cache: Any = None               # this block's cache slice
@@ -85,6 +86,10 @@ def attn_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
          "wk": dense_init(gen, d, cfg.kv_dim, dtype),
          "wv": dense_init(gen, d, cfg.kv_dim, dtype),
          "wo": dense_init(gen, cfg.q_dim, d, dtype)}
+    if cfg.use_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                        ("bv", cfg.kv_dim), ("bo", d)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
     if cfg.qk_norm:
         p["q_norm"] = norm_init(cfg.head_dim, dtype, gen.device, False)
         p["k_norm"] = norm_init(cfg.head_dim, dtype, gen.device, False)
@@ -93,16 +98,19 @@ def attn_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
 
 def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
     B, S, _ = x.shape
-    q = linear(x, params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = linear(x, params["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(x, params["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = linear(x, params["wq"], params.get("bq")).reshape(
+        B, S, cfg.num_heads, cfg.head_dim)
+    k = linear(x, params["wk"], params.get("bk")).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = linear(x, params["wv"], params.get("bv")).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         # RMSNorm over each head, after the projection and before RoPE
         q = apply_norm(params["q_norm"], q, cfg.norm_eps)
         k = apply_norm(params["k_norm"], k, cfg.norm_eps)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -132,12 +140,26 @@ def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
                                    device=x.device))
                 attn.fill_ring(ck, cv, k, v, lens, window)
             else:
-                ck[:, :S] = k
-                cv[:, :S] = v
-                ck[:, S:].zero_()
-                cv[:, S:].zero_()
+                write_prefix(ck, k)
+                write_prefix(cv, v)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return linear(out, params["wo"]), new_cache
+    return linear(out, params["wo"], params.get("bo")), new_cache
+
+
+def write_prefix(cache, x):
+    """Prefill's cache write: x [B,S,...] into cache [B,Smax,...] at
+    positions 0..S-1, zeros past them, in place.  A pass longer than the
+    cache raises ``TypeError``, as the JAX package's
+    ``dynamic_update_slice`` does (qwen2-vl's patches make a pass P tokens
+    longer than the text the engine sized the cache for)."""
+    S = x.shape[1]
+    if S > cache.shape[1]:
+        raise TypeError(
+            "dynamic_update_slice update shape must be smaller than operand "
+            f"shape, got update shape {tuple(x.shape)} for operand shape "
+            f"{tuple(cache.shape)}.")
+    cache[:, :S] = x
+    cache[:, S:].zero_()
 
 
 def attn_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *,
@@ -175,7 +197,7 @@ def moe_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
          "experts": {"wi": stack(d, f), "wg": stack(d, f),
                      "wo": stack(f, d)}}
     if m.num_shared_experts:
-        p["shared"] = mlp_init(gen, d, m.shared_d_ff, dtype)
+        p["shared"] = mlp_init(gen, d, m.shared_d_ff, dtype, cfg.use_bias)
     return p
 
 
@@ -510,18 +532,20 @@ def block_init(blk: str, gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
         if cfg.moe is not None:
             p["moe"] = moe_init(gen, cfg, dtype)
         else:
-            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                cfg.use_bias)
         return p
     if blk == cfgs.RGLRU:
         return {"ln1": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
                 "ln2": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
                 "rec": rglru_init(gen, cfg, dtype),
-                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                cfg.use_bias)}
     if blk == cfgs.RWKV:
         return {"ln1": norm_init(cfg.d_model, dtype, dev, True),
                 "ln2": norm_init(cfg.d_model, dtype, dev, True),
                 "rwkv": rwkv_init(gen, cfg, dtype)}
-    raise NotImplementedError(f"block {blk!r} is not yet ported")
+    raise ValueError(f"unknown block {blk!r}")
 
 
 def block_cache_init(blk: str, cfg: cfgs.ModelConfig, batch: int, smax: int,
@@ -534,7 +558,7 @@ def block_cache_init(blk: str, cfg: cfgs.ModelConfig, batch: int, smax: int,
         return rglru_cache_init(cfg, batch, dtype=dtype, device=device)
     if blk == cfgs.RWKV:
         return rwkv_cache_init(cfg, batch, dtype=dtype, device=device)
-    raise NotImplementedError(f"block {blk!r} is not yet ported")
+    raise ValueError(f"unknown block {blk!r}")
 
 
 def block_apply(blk: str, params, x, ctx: Ctx):
@@ -558,7 +582,7 @@ def block_apply(blk: str, params, x, ctx: Ctx):
         y, new_cache = rwkv_apply(params, x, ctx)
         return y, new_cache, 0.0
     else:
-        raise NotImplementedError(f"block {blk!r} is not yet ported")
+        raise ValueError(f"unknown block {blk!r}")
     x = x + a_out
     h2 = apply_norm(params["ln2"], x, cfg.norm_eps)
     m_out, aux = _ffn(params, h2, ctx)

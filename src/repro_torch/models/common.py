@@ -1,4 +1,5 @@
-"""Shared model-building primitives: init, norms, projections, RoPE.
+"""Shared model-building primitives: init, norms, projections, RoPE and
+M-RoPE.
 
 The PyTorch counterpart of ``repro.models.common``.  Parameters are plain
 dicts of tensors; every function takes tensors and returns tensors.  Matmuls
@@ -8,7 +9,7 @@ fp32 SiLU, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -88,27 +89,38 @@ def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., in] @ w [in, out] (biases are not ported yet)."""
-    return x @ w
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [..., in] @ w [in, out] (+ b [out])."""
+    y = x @ w
+    return y if b is None else y + b
 
 
-def mlp_init(gen: torch.Generator, d: int, f: int, dtype) -> Params:
-    return {"wi": dense_init(gen, d, f, dtype),
-            "wg": dense_init(gen, d, f, dtype),
-            "wo": dense_init(gen, f, d, dtype)}
+def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
+             use_bias: bool = False) -> Params:
+    """``wi``, ``wg`` [d, f] and ``wo`` [f, d]; with ``use_bias`` zero
+    biases ``bi``, ``bg`` [f] and ``bo`` [d], as in the JAX package."""
+    p = {"wi": dense_init(gen, d, f, dtype),
+         "wg": dense_init(gen, d, f, dtype),
+         "wo": dense_init(gen, f, d, dtype)}
+    if use_bias:
+        dev = gen.device
+        p["bi"] = torch.zeros((f,), dtype=dtype, device=dev)
+        p["bg"] = torch.zeros((f,), dtype=dtype, device=dev)
+        p["bo"] = torch.zeros((d,), dtype=dtype, device=dev)
+    return p
 
 
 def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Gated (SwiGLU) MLP: SiLU in fp32, cast back before the gate product."""
-    h = linear(x, params["wi"])
-    g = linear(x, params["wg"])
+    h = linear(x, params["wi"], params.get("bi"))
+    g = linear(x, params["wg"], params.get("bg"))
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * h
-    return linear(h, params["wo"])
+    return linear(h, params["wo"], params.get("bo"))
 
 
 # ---------------------------------------------------------------------------
-# RoPE (half-split, llama convention)
+# RoPE / M-RoPE (half-split, llama convention)
 # ---------------------------------------------------------------------------
 
 
@@ -118,12 +130,24 @@ def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """Rotate x [..., S, H, hd] by positions [..., S]; math in fp32."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Rotate x [..., S, H, hd] by positions [..., S], or with M-RoPE by
+    positions [..., S, 3]: rotary dim i takes the (t, h, w) stream of its
+    section, sections of ``mrope_sections`` dims in order (Qwen2-VL).
+    Math in fp32."""
     half = x.shape[-1] // 2
     inv = rope_inv_freq(x.shape[-1], theta, x.device)          # [half]
-    angles = positions.float()[..., None] * inv                # [..., S, half]
+    if mrope_sections:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to the rotary half {half}")
+        sec = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                    device=x.device)
+                         for i, n in enumerate(mrope_sections)])   # [half]
+        angles = positions.float()[..., sec] * inv             # [..., S, half]
+    else:
+        angles = positions.float()[..., None] * inv            # [..., S, half]
     cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, half]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -18,6 +18,12 @@ tail blocks' states, and ``cache["len"]`` is ``[B]``.  Modes:
              hidden state of the last valid token per sequence
   * decode:  new tokens against the cache
 
+A ``patches`` front end (qwen2-vl) prepends the batch's precomputed patch
+embeddings [B, P, D] to the token embeddings outside decode, so a pass
+runs over P + S positions; ``lengths``, the pad mask and the last hidden
+state stay indexed as in the JAX package, by text tokens from the start
+of the pass.  Positions come from the batch where it has them ([B, S],
+or [B, S, 3] streams for M-RoPE), else from ``_default_positions``.
 The cache passed to prefill / decode is updated in place and returned.
 """
 from __future__ import annotations
@@ -48,6 +54,9 @@ def init_params(cfg: cfgs.ModelConfig, gen: torch.Generator, dtype=None
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": embed_init(gen, cfg.d_model,
                                              cfg.vocab_size, dtype)}
+    if cfg.learned_pos_embed:
+        params["pos_embed"] = {"w": embed_init(gen, cfg.max_pos_embed,
+                                               cfg.d_model, dtype)}
     params["layers"] = [blocks.block_init(blk, gen, cfg, dtype)
                         for blk in cfg.block_pattern]
     return params
@@ -73,12 +82,21 @@ def init_cache(cfg: cfgs.ModelConfig, batch: int, smax: int, dtype=None,
     return cache
 
 
-def _embed(cfg, params, batch):
+def _embed(cfg, params, batch, mode):
     x = params["embed"]["w"][batch["tokens"].long()]
     if cfg.scale_embedding:
         # sqrt(d_model) rounded to the model dtype first, as in JAX
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         x = x * scale.to(x.dtype).to(x.device)
+    if cfg.frontend == "patches" and mode != "decode":
+        # precomputed patch embeddings [B, P, D] before the tokens
+        x = torch.cat([batch["patches"].to(device=x.device, dtype=x.dtype),
+                       x], dim=1)
+    if cfg.learned_pos_embed:
+        pos = batch["positions"]
+        if pos.dim() == 3:
+            pos = pos[..., 0]
+        x = x + params["pos_embed"]["w"][pos.long()]
     return x
 
 
@@ -87,9 +105,13 @@ def _default_positions(cfg, batch, x, mode, lengths):
         return batch["positions"]
     B, S = x.shape[0], x.shape[1]
     if mode == "decode":
-        return (lengths - 1)[:, None]                            # [B,1]
-    return torch.arange(S, dtype=torch.int32,
-                        device=x.device)[None].expand(B, S)
+        pos = (lengths - 1)[:, None]                             # [B,1]
+    else:
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device)[None].expand(B, S)
+    if cfg.mrope_sections:                      # the same on all 3 streams
+        pos = pos[..., None].expand(pos.shape + (3,))
+    return pos
 
 
 def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
@@ -99,7 +121,7 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
     mixture-of-experts layers (an fp32 scalar, 0 without them)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = _embed(cfg, params, batch)
+    x = _embed(cfg, params, batch, mode)
     B, S = x.shape[0], x.shape[1]
     lengths = valid = None
     if mode == "prefill":

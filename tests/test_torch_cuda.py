@@ -54,7 +54,7 @@ def _randn(seed, shapes, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8, 16])
 def test_decode_kernel(cuda, dtype, hd, G):
     B, Smax, KV = 5, 300, 2
@@ -223,7 +223,7 @@ def test_flash_kernel_hd256(cuda, dtype, Sq, window):
     assert torch.equal(flash_ops.flash_attention(q, k, v, window=window), out)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
 @pytest.mark.parametrize("G", [1, 3, 4, 7, 16])
 @pytest.mark.parametrize("Sq,Skv,window", [(70, 70, 0), (45, 200, 48),
                                            (130, 130, 48)])
@@ -262,6 +262,45 @@ def test_flash_kernel_reads_fused_qkv(cuda, hd, G, window):
                                     impl="reference")
     torch.testing.assert_close(out.float(), ref.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 1500, 1500), (8, 64, 1500),
+                                      (8, 1, 1500), (3, 37, 1500)])
+def test_flash_kernel_whisper_shapes(cuda, dtype, B, Sq, Skv):
+    """K2 without the causal mask at whisper-base's widths (8 heads, 8 kv
+    heads, hd 64): the encoder's self-attention over its 1500 frames, and
+    the decoder's cross-attention of a pass (Sq tokens) and of a decode
+    step (one query) over them."""
+    H = KV = 8
+    hd = 64
+    q, k, v = _randn(28, [(B, Sq, H, hd), (B, Skv, KV, hd),
+                          (B, Skv, KV, hd)], dtype, cuda)
+    before = flash_ops.LAUNCHES
+    out = flash_ops.flash_attention(q, k, v, causal=False)
+    ref = flash_ops.flash_attention(q, k, v, causal=False, impl="reference")
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(flash_ops.flash_attention(q, k, v, causal=False), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,window", [(1, 1, 0), (37, 37, 0),
+                                           (300, 300, 0), (64, 300, 0),
+                                           (130, 130, 48)])
+def test_flash_kernel_hd160(cuda, dtype, Sq, Skv, window):
+    """K2 at stablelm-12b's attention widths (32 q heads on 8 kv heads, hd
+    160, laid out at 192 in shared memory): the zero-filled columns past
+    160 change nothing, and a second launch gives the same bits."""
+    B, H, KV, hd = 2, 32, 8, 160
+    q, k, v = _randn(29, [(B, Sq, H, hd), (B, Skv, KV, hd),
+                          (B, Skv, KV, hd)], dtype, cuda)
+    out = flash_ops.flash_attention(q, k, v, window=window)
+    ref = flash_ops.flash_attention(q, k, v, window=window, impl="reference")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(flash_ops.flash_attention(q, k, v, window=window), out)
 
 
 def test_flash_kernel_rejects_what_tma_cannot_read(cuda):
@@ -477,15 +516,16 @@ def test_recurrent_smoke_model_through_kernels(cuda, arch):
 
 @pytest.mark.parametrize("arch", ["qwen3-32b", "command-r-35b",
                                   "minitron-8b", "phi3.5-moe-42b-a6.6b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "stablelm-12b"])
 def test_zoo_smoke_model_through_kernels(cuda, arch):
     """The zoo's smoke models with qk-norm, parallel blocks and mixtures
-    of experts in fp32, at head_dim 64 (K1 and K2 take 64, 128, 256): a
-    ragged prefill launches K2 once a layer, each decode step K1 once a
-    layer, and logits and the MoE aux loss equal the plain path's (every
-    attention through its plain version) within 2e-4."""
+    of experts in fp32, at head_dim 64 (160 for stablelm-12b, its full
+    head dim; K1 and K2 take 64, 128, 160, 256): a ragged prefill launches
+    K2 once a layer, each decode step K1 once a layer, and logits and the
+    MoE aux loss equal the plain path's (every attention through its
+    plain version) within 2e-4."""
     cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32",
-                              head_dim=64)
+                              head_dim=160 if arch == "stablelm-12b" else 64)
     model = model_zoo.build(cfg)
     gen = torch.Generator(device=cuda).manual_seed(0)
     params = model.init_params(gen)
@@ -529,6 +569,68 @@ def test_zoo_smoke_model_through_kernels(cuda, arch):
     for a, b in zip(aux, ref_aux):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     assert (float(aux[0]) > 0) == (cfg.moe is not None)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-7b"])
+def test_multimodal_smoke_model_through_kernels(cuda, arch):
+    """whisper-base and qwen2-vl-7b smoke models in fp32 at head_dim 64
+    (qwen2-vl's M-RoPE sections scaled to 8 / 12 / 12 of its 32 rotary
+    pairs), fed the engine's front-end inputs: whisper's prefill launches
+    K2 for each encoder layer and twice for each decoder layer (causal
+    self-attention, non-causal cross-attention), each decode step K1 and
+    K2 (one query over the 32 frames) once a decoder layer; qwen2-vl's
+    prefill over 16 patches + the text launches K2 once a layer, each
+    decode step K1 once a layer.  Logits equal the plain path's within
+    2e-4."""
+    from repro_torch.inference.engine import TorchInferenceEngine
+    cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32",
+                              head_dim=64)
+    if cfg.mrope_sections:
+        cfg = dataclasses.replace(cfg, mrope_sections=(8, 12, 12))
+    eng = TorchInferenceEngine(cfg, device="cuda", max_seq=64)
+    model, params = eng.model, eng.params
+    L = cfg.num_layers
+    B, S = 2, 40
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(4, cfg.vocab_size, (B, S), generator=gen,
+                         device=cuda)
+    lens = torch.tensor([40, 29], dtype=torch.int32, device=cuda)
+    from repro_torch.inference.backend import COMPLETE, Request
+    extra = eng._modality_batch([Request(f"clip {i}", cfg.name, COMPLETE)
+                                 for i in range(B)], B, S)
+    per_pass = (cfg.encoder_layers + 2 * L, 0) if cfg.is_encoder_decoder \
+        else (L, 0)
+    per_step = (L, L) if cfg.is_encoder_decoder else (0, L)
+
+    def serve(reference):
+        ctx = contextlib.ExitStack()
+        if reference:
+            ctx.enter_context(attention.use_flash_impl("reference"))
+            ctx.enter_context(attention.use_decode_impl("reference"))
+        with ctx:
+            cache = model.init_cache(B, 80, device=cuda)
+            before = (flash_ops.LAUNCHES, dec_ops.LAUNCHES)
+            out = model.apply(params, {"tokens": toks, "lengths": lens,
+                                       **extra}, mode="prefill", cache=cache)
+            logits = [model.logits_of(params, out["last_hidden"])]
+            got = [(flash_ops.LAUNCHES - before[0],
+                    dec_ops.LAUNCHES - before[1])]
+            for step in range(4):
+                before = (flash_ops.LAUNCHES, dec_ops.LAUNCHES)
+                out = model.apply(params, {"tokens": toks[:, step:step + 1]},
+                                  mode="decode", cache=cache)
+                logits.append(model.logits_of(params, out["hidden"][:, 0]))
+                got.append((flash_ops.LAUNCHES - before[0],
+                            dec_ops.LAUNCHES - before[1]))
+        return logits, got
+
+    logits, got = serve(False)
+    ref, ref_got = serve(True)
+    torch.cuda.synchronize()
+    assert got[0] == per_pass and all(g == per_step for g in got[1:])
+    assert all(g == (0, 0) for g in ref_got)
+    for a, b in zip(logits, ref):
+        torch.testing.assert_close(a, b, **TOL[torch.float32])
 
 
 # ---------------------------------------------------------------------------

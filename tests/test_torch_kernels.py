@@ -63,6 +63,7 @@ DECODE_CASES = [
     (3, 100, 8, 2, 32, [1, 37, 100]),      # GQA 4:1, Smax not a tile multiple
     (2, 64, 4, 1, 16, [1, 64]),            # MQA
     (4, 130, 4, 4, 16, [1, 2, 65, 129]),   # MHA, ragged
+    (2, 70, 8, 2, 160, [1, 70]),           # hd 160 (stablelm-12b), G 4
 ]
 
 
@@ -156,6 +157,10 @@ FLASH_CASES = [
     (1, 4, 2, 48, 48, 16, True, 16),    # window
     (2, 4, 2, 24, 56, 16, True, 0),     # Sq < Skv (incremental prefill)
     (1, 4, 4, 33, 33, 16, False, 0),    # not causal
+    (1, 8, 2, 40, 40, 160, True, 0),    # hd 160 (stablelm-12b), G 4
+    (2, 4, 4, 24, 56, 16, False, 0),    # not causal, Sq < Skv (cross-attn)
+    (2, 4, 4, 1, 48, 16, False, 0),     # not causal, one query (decode)
+    (1, 4, 4, 20, 48, 64, False, 0),    # whisper's hd 64, G 1, Sq < Skv
 ]
 
 

@@ -58,17 +58,24 @@ def test_configs_match_the_reference():
                 == dataclasses.asdict(jcfgs.get_config(arch)))
         assert (dataclasses.asdict(tcfgs.get_smoke_config(arch))
                 == dataclasses.asdict(jcfgs.get_smoke_config(arch)))
-    # still unported: the encoder-decoder, M-RoPE, and hd 160 (stablelm)
+    # the last three of the zoo: the encoder-decoder, M-RoPE with patches,
+    # and hd 160 (stablelm); every known id is ported
     for arch in ("whisper-base", "stablelm-12b", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError):
-            tcfgs.get_config(arch)
+        for get in ("get_config", "get_smoke_config"):
+            assert (dataclasses.asdict(getattr(tcfgs, get)(arch))
+                    == dataclasses.asdict(getattr(jcfgs, get)(arch)))
+    assert set(tcfgs.PORTED_IDS) == set(tcfgs.KNOWN_IDS)
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-model")
+    # model_zoo.build takes M-RoPE and encoder-decoder configs, and routes
+    # the encoder-decoder to models/whisper.py
     smoke = tcfgs.get_smoke_config("proxy-8b")
-    for feature in (dict(mrope_sections=(4, 2, 2)),
-                    dict(is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError):
-            model_zoo.build(dataclasses.replace(smoke, **feature))
+    mrope = model_zoo.build(dataclasses.replace(smoke,
+                                                mrope_sections=(4, 2, 2)))
+    assert mrope.apply.func is lm.apply
+    enc_dec = model_zoo.build(tcfgs.get_smoke_config("whisper-base"))
+    assert enc_dec.apply.func.__module__ == "repro_torch.models.whisper"
+    assert enc_dec.logits_of.func is lm.logits_of
 
 
 def test_bridge_layout_and_bf16(models):

@@ -1,7 +1,7 @@
 """The port's zoo decoders with qk-norm, parallel blocks and mixtures of
 experts (qwen3-32b, command-r-35b, minitron-8b, phi3.5-moe-42b-a6.6b,
-qwen2-moe-a2.7b) held to the JAX package on params converted from JAX
-smoke models.
+qwen2-moe-a2.7b, stablelm-12b) held to the JAX package on params converted
+from JAX smoke models.
 
 Configs, param trees, the whole LM in train, prefill and decode mode, the
 MoE load-balance loss and the engine on both backends are compared on the
@@ -46,7 +46,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 AUX_TOL = 1e-6
 VALUE_TOL = 1e-5
 ARCHS = ("qwen3-32b", "command-r-35b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
-         "qwen2-moe-a2.7b")
+         "qwen2-moe-a2.7b", "stablelm-12b")
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
 
 
@@ -139,10 +139,10 @@ def test_param_tree_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_qkv_at_full_heads_matches_jax(arch):
-    """q, k, v of the full config's heads (hd 128, the config's qk-norm and
-    RoPE theta: 1e6 for qwen3 and qwen2-moe, 8e6 for command-r) on a
-    narrow d_model, at positions up to 8191: the port's RoPE tables and
-    per-head RMSNorm equal JAX's within 2e-4 (fp32)."""
+    """q, k, v of the full config's heads (hd 128, 160 for stablelm; the
+    config's qk-norm and RoPE theta: 1e6 for qwen3 and qwen2-moe, 8e6 for
+    command-r) on a narrow d_model, at positions up to 8191: the port's
+    RoPE tables and per-head RMSNorm equal JAX's within 2e-4 (fp32)."""
     full = jcfgs.get_config(arch)
     jcfg = dataclasses.replace(full, d_model=32, dtype="float32")
     tcfg = _fp32(dataclasses.replace(tcfgs.get_config(arch), d_model=32))
@@ -156,7 +156,8 @@ def test_qkv_at_full_heads_matches_jax(arch):
     pos = np.sort(rng.integers(0, 8192, (2, 5)), axis=1).astype(np.int32)
     j = jblocks._qkv(jp, jnp.asarray(x), jcfg, jnp.asarray(pos))
     t = blocks._qkv(tp, torch.from_numpy(x), tcfg, torch.from_numpy(pos))
-    assert tcfg.head_dim == 128 and tcfg.rope_theta == full.rope_theta
+    assert tcfg.head_dim == (160 if arch == "stablelm-12b" else 128)
+    assert tcfg.rope_theta == full.rope_theta
     for a, b in zip(t, j):
         np.testing.assert_allclose(_np(a), _np(b), **TOL)
 
