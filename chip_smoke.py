@@ -77,6 +77,17 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 # dense, per type; "tf32": the tensor cores' TF32 product rate (K3)
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}  # the tolerances of the CPU tests
+# K2 without the causal mask at whisper-base's shapes (1500 keys), bf16.
+# On N(0, 1) inputs an output element has std ~0.04, so TOL's 5e-2 would
+# pass a kernel that dropped the ragged 28-key tail tile (1500 = 23 * 64 +
+# 28; ~0.02 off): these are held to max|out-plain| <= CROSS_TOL, five
+# times the largest reading (0.000977 and 0.00195 on the H100, PERF.md
+# section 6).  The served inputs give outputs of order one (max|err| read
+# 0.0039 and 0.0078, one bf16 step), so there the gate is relative:
+# ||out-plain|| / ||plain|| <= CROSS_REL_TOL, a few times what rounding P
+# and the output to bf16 gives (~0.003)
+CROSS_TOL = 1e-2
+CROSS_REL_TOL = 1e-2
 # kernel-served vs plain-served limits at full width (bf16), a few times
 # the readings on the H100 (PERF.md, section 6): decode-step logits
 # (relative L2 per row), SCORE's prefill logits (the same, static path
@@ -263,29 +274,21 @@ def device_ms(fn, iters: int = 20):
     Where a call is short, the events of ``cuda_time_ms`` time the host's
     launches instead.  Averaged over the launches recorded, not over
     ``iters``: a profiler session after an earlier one in the same process
-    may not record every launch, and after the served batches' profiles
-    some short sessions recorded none.  Each session idles the host
-    ``wait`` seconds before its first launch, which made that rarer, and
-    one that records nothing is made once more with a longer wait.  None
-    where neither records device time."""
+    may not record every launch.  None where it records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for wait in (0.05, 0.5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(wait)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for name, _, d in device_events(prof):
-            n, total = by_name.get(name, (0, 0))
-            by_name[name] = (n + 1, total + d)
-        ns = sum(total / n for n, total in by_name.values())
-        if ns:
-            return ns / 1e6
-    return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for name, _, d in device_events(prof):
+        n, total = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, total + d)
+    ns = sum(total / n for n, total in by_name.values())
+    return ns / 1e6 if ns else None
 
 
 def device_events(prof):
@@ -306,6 +309,11 @@ def fmt_ms(x) -> str:
 
 def max_err(x, y) -> float:
     return float((x.float() - y.float()).abs().max())
+
+
+def rel_l2(x, y) -> float:
+    """||x - y|| / ||y||, over the whole tensor."""
+    return float((x.float() - y.float()).norm() / y.float().norm())
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +532,12 @@ def check_attention_hd160_and_cross(torch, dec_ops, flash_ops, dev, gen,
                                             impl="reference")
             torch.cuda.synchronize()
             e = max_err(out, ref)
+            tol = (CROSS_TOL if not causal and dtype == torch.bfloat16
+                   else TOL[name])
             print(f"K2 flash {name} B={b} H={h} KV={kv} hd={d} Sq={Sq} "
-                  f"Skv={Skv} causal={causal}: max|out-plain|={e:.3g} (tol "
-                  f"{TOL[name]})")
-            if not e <= TOL[name]:
+                  f"Skv={Skv} causal={causal}: max|out-plain|={e:.3g} "
+                  f"rel. L2 {rel_l2(out, ref):.3g} (tol {tol})")
+            if not e <= tol:
                 fail(f"K2 {name} hd {d} Sq={Sq} Skv={Skv} causal={causal} "
                      "disagrees with its plain version")
             key = "flash_attention@" + ("hd160" if causal else "cross")
@@ -1451,7 +1461,8 @@ def whisper_path(torch, errs):
             fail(f"whisper-base: no served K2 launch of the {what}")
         args, kw = most_work(got, lambda a: a[0].numel() * a[1].shape[1])
         print(f"whisper-base K2, {what}:")
-        t = time_flash(torch, flash_ops, *args, **kw)
+        t = time_flash(torch, flash_ops, *args, **kw, rel_tol=None
+                       if kw["causal"] else CROSS_REL_TOL)
         err = gate_err("K2", t.pop("max_abs_err"), args[0].dtype)
         errs["flash_attention@cross"] = max(
             errs.get("flash_attention@cross", 0.0), err)
@@ -3020,13 +3031,24 @@ def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200):
             "max_abs_err": err}
 
 
-def time_flash(torch, flash_ops, q, k, v, causal=True, window=0, iters=50):
+def time_flash(torch, flash_ops, q, k, v, causal=True, window=0, iters=50,
+               rel_tol=None):
+    """K2 timed beside its plain version, its bound and SDPA; with
+    ``rel_tol``, it fails where ||out-plain|| / ||plain|| exceeds it."""
     import torch.nn.functional as F
     out = flash_ops.flash_attention_cuda(q, k, v, causal=causal,
                                          window=window)
     ref = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                     impl="reference")
     err = max_err(out, ref)
+    if rel_tol is not None:
+        rel = rel_l2(out, ref)
+        print(f"K2 flash B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} "
+              f"causal={causal}: rel. L2 err {rel:.3g} (tol {rel_tol})")
+        if not rel <= rel_tol:
+            fail(f"K2 Sq={q.shape[1]} Skv={k.shape[1]} causal={causal} "
+                 f"disagrees with its plain version: rel. L2 {rel} > "
+                 f"{rel_tol}")
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     qp = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)

@@ -6,7 +6,9 @@ only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 2e-4 (summation
-order differs), bf16 5e-2 (outputs round to bf16 at different points).
+order differs), bf16 5e-2 (outputs round to bf16 at different points),
+and 1e-2 where K2 runs without the causal mask over whisper's 1500
+frames (outputs there are ~0.04).
 K4 (RG-LRU scan) is held to its plain version bit for bit (both round
 the multiply and the add separately in fp32); K5 (RWKV-6 scan) within
 2e-4 of the largest plain value (fp32 sums in another order).  K3
@@ -36,6 +38,12 @@ from repro_torch.semindex import (IvfConfig, IvfFlatIndex,  # noqa: E402
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
        torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+# K2 without the causal mask over whisper's 1500 frames, bf16: outputs of
+# std ~0.04 on N(0, 1) inputs, so 5e-2 would pass a kernel that dropped
+# the ragged 28-key tail tile; held to |out-plain| <= 1e-2, five times the
+# largest reading on the H100 (0.00195)
+CROSS_TOL = {torch.float32: TOL[torch.float32],
+             torch.bfloat16: dict(rtol=0, atol=1e-2)}
 TOPK_TOL = 1e-5
 
 
@@ -281,7 +289,7 @@ def test_flash_kernel_whisper_shapes(cuda, dtype, B, Sq, Skv):
     ref = flash_ops.flash_attention(q, k, v, causal=False, impl="reference")
     torch.cuda.synchronize()
     assert flash_ops.LAUNCHES == before + 1
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(out.float(), ref.float(), **CROSS_TOL[dtype])
     assert torch.equal(flash_ops.flash_attention(q, k, v, causal=False), out)
 
 

@@ -47,6 +47,7 @@ from repro_torch.models import whisper  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-4)
 VALUE_TOL = 1e-5
 ARCHS = ("whisper-base", "qwen2-vl-7b")
+BIASES = ("bq", "bk", "bv", "bo", "bi", "bg", "bias")
 
 
 def _fp32(cfg):
@@ -59,13 +60,33 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+def _nonzero_biases(tree, seed):
+    """The JAX tree with every bias leaf drawn from N(0, 0.1^2) and every
+    norm's scale from N(1, 0.1^2), seeded: JAX's init makes biases zero
+    and scales one, and a port that dropped or misplaced one of them would
+    agree with it there."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = getattr(path[-1], "key", None)
+        if name in BIASES:
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape), a.dtype)
+        if name == "scale":
+            return jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape),
+                               a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def models(request):
     arch = request.param
     jcfg = _fp32(jcfgs.get_smoke_config(arch))
     tcfg = _fp32(tcfgs.get_smoke_config(arch))
     jm = jzoo.build(jcfg)
-    jparams = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    jparams = _nonzero_biases(jax.jit(jm.init_params)(jax.random.PRNGKey(0)),
+                              11)
     tm = model_zoo.build(tcfg)
     tparams = bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams))
     japply = jax.jit(jm.apply, static_argnames=("mode", "remat"))
@@ -208,8 +229,8 @@ def test_mrope_matches_jax(sections, hd):
 def test_whisper_encoder_matches_jax():
     jcfg = _fp32(jcfgs.get_smoke_config("whisper-base"))
     tcfg = _fp32(tcfgs.get_smoke_config("whisper-base"))
-    jp = jax.jit(jwhisper.init_params, static_argnums=0)(
-        jcfg, jax.random.PRNGKey(1))
+    jp = _nonzero_biases(jax.jit(jwhisper.init_params, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(1)), 12)
     tp = bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
     (jb, tb) = _batch(tcfg, 4, 3, 5)
     j = jwhisper.encode(jcfg, jp, jb["frames"])
@@ -308,7 +329,7 @@ def test_learned_positions_match_jax():
     tcfg = dataclasses.replace(_fp32(tcfgs.get_smoke_config("proxy-8b")),
                                **over)
     jm, tm = jzoo.build(jcfg), model_zoo.build(tcfg)
-    jp = jm.init_params(jax.random.PRNGKey(2))
+    jp = _nonzero_biases(jm.init_params(jax.random.PRNGKey(2)), 13)
     tp = bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
     assert tp["pos_embed"]["w"].shape == (64, tcfg.d_model)
     rng = np.random.default_rng(9)
@@ -451,6 +472,7 @@ def engines(monkeypatch):
         jeng = JaxInferenceEngine(arch, **kw)
         teng = TorchInferenceEngine(arch, device="cpu", **kw)
         assert teng.backend == jeng.backend == "static"
+        jeng.params = _nonzero_biases(jeng.params, 14)
         teng.params = bridge.params_from_jax(
             teng.cfg, jax.tree.map(np.asarray, jeng.params))
         return jeng, teng

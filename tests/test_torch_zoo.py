@@ -48,6 +48,7 @@ VALUE_TOL = 1e-5
 ARCHS = ("qwen3-32b", "command-r-35b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
          "qwen2-moe-a2.7b", "stablelm-12b")
 MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
+BIASES = ("bq", "bk", "bv", "bo", "bi", "bg", "bias")
 
 
 def _fp32(cfg):
@@ -58,6 +59,25 @@ def _np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def _nonzero_norms(tree, seed):
+    """The JAX tree with every bias leaf (stablelm-12b's LayerNorm biases)
+    drawn from N(0, 0.1^2) and every norm's scale from N(1, 0.1^2),
+    seeded: JAX's init makes biases zero and scales one, and a port that
+    dropped or misplaced one of them would agree with it there."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = getattr(path[-1], "key", None)
+        if name in BIASES:
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape), a.dtype)
+        if name == "scale":
+            return jnp.asarray(1 + 0.1 * rng.standard_normal(a.shape),
+                               a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
 
 
 def _tokens(seed, B, S, vocab):
@@ -71,7 +91,8 @@ def models(request):
     jcfg = _fp32(jcfgs.get_smoke_config(arch))
     tcfg = _fp32(tcfgs.get_smoke_config(arch))
     jm = jzoo.build(jcfg)
-    jparams = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    jparams = _nonzero_norms(jax.jit(jm.init_params)(jax.random.PRNGKey(0)),
+                             11)
     tm = model_zoo.build(tcfg)
     tparams = bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams))
     japply = jax.jit(jm.apply, static_argnames=("mode", "remat"))
@@ -393,6 +414,7 @@ def test_engine_matches_jax(arch, backend, monkeypatch):
     teng = TorchInferenceEngine(arch, device="cpu", **kw)
     assert teng.backend == jeng.backend == backend
     assert continuous.supports(teng.cfg)
+    jeng.params = _nonzero_norms(jeng.params, 14)
     teng.params = bridge.params_from_jax(
         teng.cfg, jax.tree.map(np.asarray, jeng.params))
     reqs = _requests(arch)
