@@ -52,8 +52,16 @@ encoder and the cross-attention, a decode step's one query included) and
 qwen2-vl-7b (16 patches before the text, M-RoPE; its SCORE and CLASSIFY
 raise as the JAX engine's do, and the script checks that they do) are
 served at full width and depth on the static path, with the same gates.
-Last it times each kernel beside its plain version, its bound and, where
-one exists, one PyTorch library call.  The last line is a JSON object with
+Then the training phase: ``launch/train.py`` trains proxy-8b at full
+width (4 of its 32 layers) for a few steps with checkpoints, the last
+checkpoint is held to the trained state bit for bit, and a second run
+resumes from it; then one ``loss_fn`` backward of proxy-8b, of
+recurrentgemma-9b (one period and its tail, two microbatches), of
+rwkv6-1.6b and of whisper-base goes through K2, K4 and K5 (their
+autograd Functions) and through the plain versions, with gates on the
+launch counts, on every gradient leaf and on the loss falling over a few
+train steps.  Last it times each kernel beside its plain version, its
+bound and, where one exists, one PyTorch library call.  The last line is a JSON object with
 ``"ok": true``; any failed check exits non-zero without it.  It needs no
 network and imports nothing of JAX.
 """
@@ -190,6 +198,47 @@ ROUTER_MARGIN_TOL = 0.05
 TOPK_TOL = 1e-5
 SEED = 0
 N_LAYERS = 32
+# The training phase (train_path), gates stated before its first run.
+# Per-leaf relative L2 between the gradients of one loss_fn backward
+# through the kernels and through their plain versions, bf16 at full
+# width: the kernels' outputs round to bf16 at other places than the plain
+# versions', and the difference carries through every layer's backward.
+TRAIN_GRAD_TOL = 5e-2
+# launch/train.py's runs: proxy-8b at full width, 4 of its 32 layers (the
+# fp32 moments of all 32 alone take 64 GB), B x S tokens a step, a
+# checkpoint every TRAIN_CKPT_EVERY steps: TRAIN_CKPT_EVERY steps, then a
+# second run on the same directory that resumes there and runs to
+# TRAIN_STEPS.  Two checkpoints of 19.2 GB: the card's host refuses a
+# command that writes more than 45 GiB to its disk, deleted files
+# included, and three (a first run of 6 steps, a resume to 7) were
+# ended there (chip run, PR 21)
+TRAIN_LAYERS = 4
+TRAIN_CKPT_EVERY = 3
+TRAIN_STEPS = 2 * TRAIN_CKPT_EVERY
+TRAIN_B, TRAIN_S = 8, 512
+# launch/train.py's default 1e-3 is set for the smoke models (d_model 64).
+# AdamW's first step moves every weight by about the learning rate, and
+# the warmup is one step at 6 steps: at d_model 4096 the loss jumped from
+# 12.49 to 29.8 at 1e-3 and to 20.4 at 1e-4 on the first readings
+# (PERF.md, section 6).  1e-5 gives a [4096, 14336] weight about the
+# relative step (||update|| / ||W||, ~4%) that 1e-3 gives the smoke
+# model's [64, 128]
+TRAIN_LR = 1e-5
+# the gradient cells: arch -> (layers, or None for full depth; B; S;
+# dtype).  recurrentgemma-9b: one period and its tail (rglru, rglru,
+# local; rglru, rglru), S past its window of 2048, its config's 2
+# microbatches; whisper-base whole, its encoder over 1500 frames.
+# rwkv6-1.6b runs whole in fp32 (K5 reads r, k, v in fp32): in bf16 at
+# 24 layers the two paths' gradients read rel. L2 up to 2.1 at layer 0
+# and 0.94 at layer 23 while the same comparison in fp32 read at most
+# 0.0116 (PERF.md, section 6): bf16 rounding, not K5, decides the
+# bf16 reading at that depth
+GRAD_CELLS = {"proxy-8b": (TRAIN_LAYERS, TRAIN_B, TRAIN_S, "bfloat16"),
+              "recurrentgemma-9b": (5, 2, 2560, "bfloat16"),
+              "rwkv6-1.6b": (None, 4, 256, "float32"),
+              "whisper-base": (None, 8, 128, "bfloat16")}
+# train steps of each cell after its gradient check (the loss must fall)
+GRAD_STEPS = 2
 # each kernel's source and the TPU kernel it replaces
 KERNEL_FILES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1534,6 +1583,383 @@ def qwen2_vl_path(torch, errs):
     del eng, calls
     gc.collect()
     torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# training: launch/train.py at full width with a checkpoint and a resume,
+# then one loss_fn backward through the kernels against the plain path
+# (K2; K4, K2 with a window at hd 256; K5; K2 without the mask, Sq != Skv)
+# ---------------------------------------------------------------------------
+
+
+def remat_launches(cfg):
+    """K2, K4, K5 launches of one loss_fn backward of one microbatch with
+    remat: two for each layer whose period runs under activation
+    checkpointing (its forward and the recompute), one for a tail layer
+    and for a whisper encoder layer, which do not."""
+    from repro_torch.configs import base as cfgs
+    got = {"flash_attention": 0, "rglru_scan": 0, "rwkv6_scan": 0}
+    if cfg.is_encoder_decoder:
+        got["flash_attention"] = cfg.encoder_layers + 2 * 2 * cfg.num_layers
+        return got
+    kernel = {cfgs.ATTN: "flash_attention", cfgs.LOCAL_ATTN:
+              "flash_attention", cfgs.RGLRU: "rglru_scan",
+              cfgs.RWKV: "rwkv6_scan"}
+    n_body = cfg.num_periods * len(cfg.period)
+    for layer, blk in enumerate(cfg.block_pattern):
+        got[kernel[blk]] += 2 if layer < n_body else 1
+    return got
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) pairs in the order of ``optim.leaves``."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def train_kernels():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    return {"flash_attention": flash_ops, "rglru_scan": rglru_ops,
+            "rwkv6_scan": rwkv_ops}
+
+
+def zero_launches(mods):
+    for m in mods.values():
+        m.LAUNCHES = 0
+
+
+def device_busy(events):
+    """(busy ns: the union of the events' intervals, {name: (n, ns)})."""
+    spans, by_name = [], {}
+    for name, t, d in events:
+        spans.append((t, t + d))
+        n, total = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, total + d)
+    if not spans:
+        return 0, by_name
+    spans.sort()
+    busy, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return busy + hi - lo, by_name
+
+
+def profile_step(torch, what, fn):
+    """One call of ``fn`` under the profiler: wall time, device busy time
+    and idle share, and the device work that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, by_name = device_busy(device_events(prof))
+    if not busy:
+        print(f"profile {what}: no device time recorded (not measured)")
+        return None
+    idle = 1 - busy / 1e9 / wall
+    print(f"profile {what}: wall {wall * 1e3:.1f} ms (profiler on), device "
+          f"busy {busy / 1e6:.1f} ms, idle share {idle:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, total) in top[:8]:
+        print(f"  {total / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
+    return idle
+
+
+def train_batch(torch, cfg, B, S, dev, seed=SEED):
+    """Step 0 of the token pipeline on the card; whisper's frames drawn
+    from a generator seeded with ``seed``."""
+    from repro_torch.train.data import TokenPipeline
+    pipe = TokenPipeline(cfg.vocab_size, seq_len=S, global_batch=B,
+                         seed=seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    if cfg.frontend == "frames":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=dev)
+    return batch
+
+
+def launch_run(torch):
+    """launch/train.py for proxy-8b at full width (TRAIN_LAYERS layers):
+    TRAIN_CKPT_EVERY steps and their checkpoint, restored and held to the
+    trained state bit for bit, then a second run on the same directory
+    that resumes from it and runs to TRAIN_STEPS.  The loss must fall
+    within each run and from the first step to the last.  Returns the K2
+    launches of both runs, the step time and the peak memory."""
+    import shutil
+    import tempfile
+    from repro_torch import bridge
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optim import leaves
+    mods = train_kernels()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        free = shutil.disk_usage(ckdir).free
+        print(f"train: checkpoints in {ckdir} ({free / 1e9:.0f} GB free)")
+        argv = ["--arch", "proxy-8b", "--no-smoke", "--layers",
+                str(TRAIN_LAYERS), "--batch", str(TRAIN_B), "--seq",
+                str(TRAIN_S), "--ckpt-dir", ckdir, "--ckpt-every",
+                str(TRAIN_CKPT_EVERY), "--seed", str(SEED), "--lr",
+                str(TRAIN_LR)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        out = train.run(argv + ["--steps", str(TRAIN_CKPT_EVERY)])
+        wall = time.perf_counter() - t0
+        launches = {n: m.LAUNCHES for n, m in mods.items()}
+        cfg, hist = out["cfg"], out["history"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if (cfg.d_model != 4096 or cfg.num_heads != 32
+                or cfg.num_kv_heads != 8 or cfg.head_dim != 128
+                or cfg.vocab_size != 128256
+                or cfg.num_layers != TRAIN_LAYERS):
+            fail("the launch run's proxy-8b is not at full width")
+        n_params = sum(t.numel() for t in leaves(out["state"]["params"]))
+        losses = [h["loss"] for h in hist]
+        secs = [h["seconds"] for h in hist]
+        print(f"train: launch/train.py proxy-8b {TRAIN_LAYERS} of "
+              f"{N_LAYERS} layers, {n_params / 1e9:.2f} B params, B="
+              f"{TRAIN_B} S={TRAIN_S}: {len(hist)} steps in {wall:.1f} s "
+              f"(checkpoints included), losses "
+              f"{[round(x, 4) for x in losses]}, step seconds "
+              f"{[round(x, 3) for x in secs]}, peak {peak:.1f} GB, K2 "
+              f"launches {launches['flash_attention']}")
+        want = 2 * TRAIN_LAYERS * TRAIN_CKPT_EVERY
+        if launches != {"flash_attention": want, "rglru_scan": 0,
+                        "rwkv6_scan": 0}:
+            fail(f"launch run: launches {launches}, want K2 {want} (2 a "
+                 "layer a step, remat)")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"launch run: losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"launch run: loss did not fall: {losses}")
+        mgr = CheckpointManager(ckdir)
+        if mgr.all_steps() != [TRAIN_CKPT_EVERY]:
+            fail(f"launch run: checkpoints {mgr.all_steps()}")
+        t0 = time.perf_counter()
+        state = out.pop("state")
+        restored = bridge.state_from_jax(cfg, mgr.restore(
+            TRAIN_CKPT_EVERY, bridge.state_dtypes(cfg, state)))
+        read_s = time.perf_counter() - t0
+        a_leaves, b_leaves = leaves(state), leaves(restored)
+        if len(a_leaves) != len(b_leaves) or not all(
+                a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+                for a, b in zip(a_leaves, b_leaves)):
+            fail("launch run: the restored checkpoint differs from the "
+                 "trained state")
+        print(f"train: step {TRAIN_CKPT_EVERY} restored in {read_s:.1f} s, "
+              f"equal to the trained state bit for bit ({len(a_leaves)} "
+              "leaves)")
+        del state, restored, a_leaves, b_leaves, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        again = train.run(argv + ["--steps", str(TRAIN_STEPS)])
+        wall2 = time.perf_counter() - t0
+        k2_again = mods["flash_attention"].LAUNCHES
+        rest = [h["loss"] for h in again["history"]]
+        if (again["resumed_from"] != TRAIN_CKPT_EVERY
+                or len(rest) != TRAIN_STEPS - TRAIN_CKPT_EVERY):
+            fail(f"resumed run: resumed_from {again['resumed_from']}, "
+                 f"{len(rest)} steps")
+        if k2_again != 2 * TRAIN_LAYERS * len(rest):
+            fail(f"resumed run: K2 launches {k2_again}")
+        if (not all(math.isfinite(x) for x in rest) or not rest[-1] < rest[0]
+                or not rest[-1] < losses[0]):
+            fail(f"resumed run: losses {rest} not finite or not falling "
+                 f"(first run {losses})")
+        if mgr.all_steps() != [TRAIN_CKPT_EVERY, TRAIN_STEPS]:
+            fail(f"resumed run: checkpoints {mgr.all_steps()}")
+        secs += [h["seconds"] for h in again["history"]]
+        print(f"train: resumed run from step {again['resumed_from']} in "
+              f"{wall2:.1f} s (restore and checkpoint included), losses "
+              f"{[round(x, 4) for x in rest]}")
+        del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"] + k2_again,
+            "step_s": statistics.median(secs[1:]), "peak_gb": peak}
+
+
+def grad_cell(torch, arch, layers, B, S, dtype):
+    """One loss_fn backward (``grad_accum`` microbatches as the config
+    says) of ``arch`` at full width through the kernels and through their
+    plain versions: launch counts, every leaf's gradient finite and nonzero
+    and within TRAIN_GRAD_TOL (relative L2) of the plain path's; then
+    GRAD_STEPS train steps through the kernels on the same batch, the
+    loss finite and falling.  Returns the launches, times, memory and the
+    inputs of each kernel's launch with the most work."""
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optim, train_step
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfgs.get_config(arch), dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    batch = train_batch(torch, cfg, B, S, dev)
+    step = train_step.make_train_step(
+        model, optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                 total_steps=GRAD_STEPS))
+    accum = cfg.grad_accum_steps
+    mods = train_kernels()
+    calls = {n: [] for n in mods}
+    want = {n: accum * c for n, c in remat_launches(cfg).items()}
+    n_params = sum(t.numel() for t in optim.leaves(params))
+
+    def grads(reference):
+        zero_launches(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with kernel_impls("reference" if reference else "auto"):
+            loss, _, g = step.grads(params, batch)
+        loss = float(loss)
+        return loss, g, time.perf_counter() - t0, {
+            n: m.LAUNCHES for n, m in mods.items()}
+
+    def keep(name):
+        """Keep the inputs of the launch with the most work."""
+        def record(args, kw, out):
+            if not calls[name] or (args[0].numel()
+                                   > calls[name][0][0][0].numel()):
+                calls[name] = [([a.detach() for a in args], kw)]
+        return record
+
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as spies:
+        for n in ("flash_attention", "rglru_scan", "rwkv6_scan"):
+            spies.enter_context(Spy(mods[n], f"{n}_cuda", keep(n)))
+        loss, g, dt, launches = grads(False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != want:
+        fail(f"{arch} train: launches {launches}, want {want} (2 a "
+             f"checkpointed layer, 1 a tail / encoder layer, x {accum} "
+             "microbatches)")
+    ref_loss, ref_g, ref_dt, ref_launches = grads(True)
+    if any(ref_launches.values()):
+        fail(f"{arch} train: the plain path launched {ref_launches}")
+    rels, bad = [], []
+    top = max(float(b.float().abs().max()) for b in optim.leaves(ref_g))
+    for (name, a), b in zip(named_leaves(g), optim.leaves(ref_g)):
+        if a is None or not bool(torch.isfinite(a).all()):
+            bad.append(f"{name}: missing or not finite")
+        elif not bool((a != 0).any()):
+            bad.append(f"{name}: zero")
+        elif name.endswith("/bk"):
+            # a key bias shifts every logit of a query alike and softmax
+            # ignores the shift: its gradient is 0 in exact arithmetic,
+            # rounding on both paths, held to the model's largest instead
+            small = max(float(a.float().abs().max()),
+                        float(b.float().abs().max()))
+            if not small <= TRAIN_GRAD_TOL * top:
+                bad.append(f"{name}: max {small:.3g} > {TRAIN_GRAD_TOL} x "
+                           f"the largest ({top:.3g})")
+        else:
+            rels.append((rel_l2(a, b), name))
+            if not rels[-1][0] <= TRAIN_GRAD_TOL:
+                bad.append(f"{name}: rel. L2 {rels[-1][0]:.4g}")
+    rels.sort(reverse=True)
+    worst = ", ".join(f"{n} {r:.3g}" for r, n in rels[:3])
+    del g, ref_g
+    print(f"train grads: {arch} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} {dtype}, {n_params / 1e9:.2f} B params, B={B} "
+          f"S={S} x "
+          f"{accum} microbatches: loss {loss:.4f} (plain {ref_loss:.4f}), "
+          f"worst leaves' rel. L2 {worst} (tol {TRAIN_GRAD_TOL}; "
+          f"{len(rels)} leaves), kernel path {dt:.2f} s, plain path "
+          f"{ref_dt:.2f} s, launches {launches}, peak {peak:.1f} GB")
+    if bad:
+        fail(f"{arch} train: {len(bad)} gradient leaves fail against the "
+             f"plain path: " + "; ".join(bad[:40]))
+    state = {"params": params, "opt_state": optim.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    losses, secs = [], []
+    for i in range(GRAD_STEPS):
+        zero_launches(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if {n: m.LAUNCHES for n, m in mods.items()} != want:
+            fail(f"{arch} train step {i}: launches differ from {want}")
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{arch} train steps: losses {losses} not finite or not falling")
+    idle = None
+    if arch == "proxy-8b":
+        idle = profile_step(torch, f"{arch} train step",
+                            lambda: step(state, batch))
+    print(f"train steps: {arch} losses {[round(x, 4) for x in losses]}, "
+          f"step seconds {[round(x, 3) for x in secs]}, peak "
+          f"{step_peak:.1f} GB with fp32 moments")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "calls": calls, "step_s": secs,
+            "peak_gb": step_peak, "idle": idle}
+
+
+def train_path(torch, errs):
+    """The training phase: ``launch_run`` then ``grad_cell`` for each of
+    GRAD_CELLS; K2, K4 and K5 timed at the train path's launches with
+    the most work.  Returns their kernels-line rows."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    t0 = time.perf_counter()
+    run = launch_run(torch)
+    cells = {arch: grad_cell(torch, arch, *shape)
+             for arch, shape in GRAD_CELLS.items()}
+    card = card_line()
+    print(f"train: phase took {time.perf_counter() - t0:.1f} s on {card}; "
+          f"launch/train.py proxy-8b step {run['step_s']:.3f} s (median), "
+          f"peak {run['peak_gb']:.1f} GB")
+    for arch, cell in cells.items():
+        idle = "not measured" if cell["idle"] is None else \
+            f"{cell['idle']:.3f}"
+        print(f"train: {arch} step {statistics.median(cell['step_s']):.3f} "
+              f"s (median of {GRAD_STEPS}), peak {cell['peak_gb']:.1f} GB, "
+              f"idle share {idle}; {card}")
+    rows = []
+    for arch, cell in cells.items():
+        for name, launched in cell["launches"].items():
+            if not launched:
+                continue
+            (args, kw), = cell["calls"][name]
+            if name == "flash_attention":
+                t = time_flash(torch, flash_ops, *args, **kw, iters=20)
+                err = gate_err("K2", t.pop("max_abs_err"), args[0].dtype)
+            elif name == "rglru_scan":
+                t = time_rglru(torch, rglru_ops, "train", *args, iters=20)
+                err = t.pop("max_abs_err")
+            else:
+                t = time_rwkv(torch, rwkv_ops, "train", *args)
+                err = t.pop("max_abs_err")
+            errs[name] = max(errs[name], err)
+            if arch == "proxy-8b":
+                launched += run["flash_attention"]
+            rows.append(kernel_row(
+                name, launched, err, t, path=f"train {arch}",
+                step_s=statistics.median(cell["step_s"]),
+                peak_gb=cell["peak_gb"], idle_share=cell["idle"]))
     return rows
 
 
@@ -2982,6 +3408,9 @@ def main() -> int:
     #     on the static path (K1, K2)
     rows += whisper_path(torch, errs)
     rows += qwen2_vl_path(torch, errs)
+    # 13. training: launch/train.py with a checkpoint and a resume, and
+    #     gradients through K2, K4 and K5 against the plain path
+    rows += train_path(torch, errs)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -3108,23 +3537,11 @@ def profile_served(torch, eng, reqs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES - launched
-    spans, by_name = [], {}
-    for name, t, d in device_events(prof):
-        spans.append((t, t + d))
-        n, total = by_name.get(name, (0, 0))
-        by_name[name] = (n + 1, total + d)
-    if not spans:
+    events = device_events(prof)
+    busy_ns, by_name = device_busy(events)
+    if not events:
         print("profile: no device time recorded (not measured)")
         return
-    spans.sort()
-    busy_ns, (lo, hi) = 0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy_ns += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    busy_ns += hi - lo
     ours = sum(n for name, (n, _) in by_name.items()
                if any(k in name for k in ("decode_bf16_kernel",
                                           "decode_f32_kernel",
@@ -3132,7 +3549,7 @@ def profile_served(torch, eng, reqs):
                                           "flash_attention_wgmma_kernel")))
     print(f"profile: served batch wall {wall * 1e3:.1f} ms (profiler on), "
           f"device busy {busy_ns / 1e6:.1f} ms, idle share "
-          f"{1 - busy_ns / 1e9 / wall:.3f}; {len(spans)} device events, "
+          f"{1 - busy_ns / 1e9 / wall:.3f}; {len(events)} device events, "
           f"K1 / K2 launches recorded {ours} of {launched}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, total) in top[:12]:

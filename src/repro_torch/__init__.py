@@ -1,5 +1,5 @@
 """PyTorch / CUDA port of the AISQL serving engine's model path, the
-client stack in front of it and the semantic index.
+client stack in front of it, the semantic index and the training path.
 
 The JAX package ``repro`` is the reference; this package imports neither
 it nor JAX.  Entry points run on a CUDA device unless the caller passes

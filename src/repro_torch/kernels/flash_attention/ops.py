@@ -5,6 +5,11 @@ the plain PyTorch version (``ref.py``); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu``, or raises if it cannot
 be built or launched.  ``impl="reference"`` runs the plain version on any
 device; only comparisons of the kernel against it pass that.
+
+Where q, k or v requires grad, a CUDA tensor goes through
+:class:`FlashAttentionFn`: the kernel forward, and a backward that
+recomputes the plain version over blocks of ``BACKWARD_ROWS`` query rows
+with the forward's mask, window, scale and query offset.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import struct
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LIB = build.CudaLibrary("flash_attention.cu", {
@@ -27,6 +33,10 @@ _pack_strides = struct.Struct("12q").pack   # the entry point's strides[12]
 HEAD_DIMS = (64, 128, 160, 256)
 # returned by the entry point where the bf16 kernel cannot take an input
 ERR_UNSUPPORTED = -1
+
+# Query rows of the plain version recomputed at once in the backward: its
+# fp32 scores are [B, KV, G, rows, Skv].
+BACKWARD_ROWS = 1024
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
@@ -65,7 +75,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     err = LIB.load().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         build.DTYPE_CODE[q.dtype], B, H, KV, Sq, Skv, hd, strides,
-        int(causal), int(window), hd ** -0.5, build.stream_ptr(q.device))
+        int(causal), int(window), sm_scale_of(hd),
+        build.stream_ptr(q.device))
     if err == ERR_UNSUPPORTED:
         raise ValueError(f"the bf16 flash attention kernel cannot take "
                          f"H / KV = {H // KV} q heads a kv head at hd {hd}, "
@@ -73,6 +84,55 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     build.check(err, "flash_attention")
     LAUNCHES += 1
     return out
+
+
+def sm_scale_of(hd: int) -> float:
+    """The softmax scale the kernel is launched with."""
+    return hd ** -0.5
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``launch(q, k, v, causal=, window=)`` in the forward (the kernel,
+    in the model layout); the backward recomputes the plain version
+    block by block of ``rows`` query rows, query row i at kv position
+    i + Skv - Sq, and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, launch, q, k, v, causal, window, sm_scale, rows):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, sm_scale, rows)
+        return launch(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, sm_scale, rows = ctx.args
+        Sq, Skv = q.shape[1], k.shape[1]
+        need_q, need_k, need_v = ctx.needs_input_grad[1:4]
+        dq = torch.empty_like(q) if need_q else None
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for r0 in range(0, Sq, rows):
+            r1 = min(r0 + rows, Sq)
+
+            def plain(qc, kk, vv, r0=r0):
+                return (flash_attention_ref(
+                    qc.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), causal=causal, window=window,
+                    sm_scale=sm_scale, q_offset=r0 + Skv - Sq
+                ).transpose(1, 2),)
+
+            gq, gk, gv = recompute_grads(
+                plain, (q[:, r0:r1], k, v), (need_q, need_k, need_v),
+                (dout[:, r0:r1],))
+            if need_q:
+                dq[:, r0:r1] = gq
+            if need_k:
+                dk += gk
+            if need_v:
+                dv += gv
+        return (None, dq, dk.to(k.dtype) if need_k else None,
+                dv.to(v.dtype) if need_v else None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -86,6 +146,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "auto" and q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(
+                flash_attention_cuda, q, k, v, causal, window,
+                sm_scale_of(q.shape[-1]), BACKWARD_ROWS)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window)

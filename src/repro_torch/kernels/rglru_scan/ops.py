@@ -9,6 +9,10 @@ device; only comparisons of the kernel against it pass that.
 The kernel reads a and b in their own type (bf16 or fp32, one type for
 both; the served model's are fp32) and the state in fp32: the wrapper
 casts h0 to fp32 where it is not.
+
+Where a, b or h0 requires grad, a CUDA tensor goes through
+:class:`RglruScanFn`: the kernel forward, and a backward that recomputes
+the plain version from the saved inputs.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 LIB = build.CudaLibrary("rglru_scan.cu", {
@@ -61,6 +66,22 @@ def rglru_scan_cuda(a, b, h0):
     return hs, hT
 
 
+class RglruScanFn(torch.autograd.Function):
+    """``launch(a, b, h0)`` in the forward (the kernel); the backward
+    recomputes the plain version and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, launch, a, b, h0):
+        ctx.save_for_backward(a, b, h0)
+        return launch(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, d_hs, d_hT):
+        return (None,) + recompute_grads(
+            rglru_scan_ref, ctx.saved_tensors, ctx.needs_input_grad[1:],
+            (d_hs, d_hT))
+
+
 def rglru_scan(a, b, h0, *, impl: str = "auto"):
     """a,b: [B,S,W]; h0: [B,W] -> (hs [B,S,W] fp32, hT [B,W] fp32).
     impl: "auto" (the kernel on CUDA, the plain version on CPU) or
@@ -68,5 +89,8 @@ def rglru_scan(a, b, h0, *, impl: str = "auto"):
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "auto" and a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                        or h0.requires_grad):
+            return RglruScanFn.apply(rglru_scan_cuda, a, b, h0)
         return rglru_scan_cuda(a, b, h0)
     return rglru_scan_ref(a, b, h0)

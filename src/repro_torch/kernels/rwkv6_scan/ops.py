@@ -12,6 +12,10 @@ state in fp32: the wrapper casts w, u and s0 to fp32 where they are not
 (the served model's w already is).  Sequences of 32 steps or more take the
 kernel's chunked path (dense products within each chunk of 32 steps),
 shorter ones (the decode steps) its step path.
+
+Where an input requires grad, a CUDA tensor goes through
+:class:`Rwkv6ScanFn`: the kernel forward, and a backward that recomputes
+the plain version from the saved inputs.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 LIB = build.CudaLibrary("rwkv6_scan.cu", {
@@ -73,6 +78,22 @@ def rwkv6_scan_cuda(r, k, v, w, u, s0):
     return o, sT
 
 
+class Rwkv6ScanFn(torch.autograd.Function):
+    """``launch(r, k, v, w, u, s0)`` in the forward (the kernel); the
+    backward recomputes the plain version and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, launch, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return launch(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, d_o, d_sT):
+        return (None,) + recompute_grads(
+            rwkv6_scan_ref, ctx.saved_tensors, ctx.needs_input_grad[1:],
+            (d_o, d_sT))
+
+
 def rwkv6_scan(r, k, v, w, u, s0, *, impl: str = "auto"):
     """r,k,v,w: [B,S,H,hd]; u: [H,hd]; s0: [B,H,hd,hd] ->
     (o [B,S,H,hd] fp32, sT [B,H,hd,hd] fp32).  impl: "auto" (the kernel
@@ -81,5 +102,8 @@ def rwkv6_scan(r, k, v, w, u, s0, *, impl: str = "auto"):
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "auto" and r.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, w, u, s0)):
+            return Rwkv6ScanFn.apply(rwkv6_scan_cuda, r, k, v, w, u, s0)
         return rwkv6_scan_cuda(r, k, v, w, u, s0)
     return rwkv6_scan_ref(r, k, v, w, u, s0)

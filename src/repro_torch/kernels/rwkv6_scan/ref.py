@@ -8,12 +8,14 @@ def rwkv6_scan_ref(r, k, v, w, u, s0):
     """o_t = r_t . (S_{t-1} + (u * k_t) v_t^T);  S_t = diag(w_t) S + k_t v_t^T.
 
     r,k,v,w: [B,S,H,hd] (w in (0,1), the decay); u: [H,hd]; s0:
-    [B,H,hd,hd].  Everything runs in fp32, one time step after the other.
+    [B,H,hd,hd].  Everything runs in fp32 (in fp64 for fp64 inputs, as
+    the gradient checks give), one time step after the other.
     Returns (o [B,S,H,hd] fp32, sT [B,H,hd,hd] fp32).
     """
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()
-    s = s0.float()
+    wide = torch.promote_types(r.dtype, torch.float32)
+    rf, kf, vf, wf = (t.to(wide) for t in (r, k, v, w))
+    uf = u.to(wide)
+    s = s0.to(wide)
     outs = []
     for t in range(rf.shape[1]):
         r_t, k_t, v_t, w_t = rf[:, t], kf[:, t], vf[:, t], wf[:, t]

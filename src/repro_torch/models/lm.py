@@ -25,6 +25,8 @@ state stay indexed as in the JAX package, by text tokens from the start
 of the pass.  Positions come from the batch where it has them ([B, S],
 or [B, S, 3] streams for M-RoPE), else from ``_default_positions``.
 The cache passed to prefill / decode is updated in place and returned.
+The training loss is :func:`ce_loss_chunked`, which never holds the
+[B, S, V] logits at once.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Any, Dict
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as cfgs
 from repro_torch.models import blocks
@@ -114,11 +117,17 @@ def _default_positions(cfg, batch, x, mode, lengths):
     return pos
 
 
-def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
+def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
+          remat: bool = True):
     """Run the backbone.  Returns a dict with hidden [B,S,D] (train),
     last_hidden [B,D] (prefill) or hidden [B,S,D] (decode), the cache
     (prefill / decode) and ``aux``, the summed load-balance loss of the
-    mixture-of-experts layers (an fp32 scalar, 0 without them)."""
+    mixture-of-experts layers (an fp32 scalar, 0 without them).
+
+    In train mode with ``remat`` each period's blocks run under
+    activation checkpointing (recomputed in the backward pass, so their
+    kernels launch twice a step), as the JAX package's
+    ``jax.checkpoint`` of its period scan; the tail's blocks do not."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = _embed(cfg, params, batch, mode)
@@ -137,20 +146,33 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
                      valid=valid)
     n = len(cfg.period)
     n_body = cfg.num_periods * n
-    aux = 0.0             # a tensor once a mixture-of-experts layer adds
-    for layer, (blk, p) in enumerate(zip(cfg.block_pattern,
-                                         params["layers"])):
-        c = None
-        if mode != "train":
-            if layer < n_body:
-                pc = cache["periods"][f"b{layer % n}"]
-                c = {k: t[layer // n] for k, t in pc.items()}
-            else:
-                c = cache["tail"][f"t{layer - n_body}"]
-        x, _, a = blocks.block_apply(blk, p, x, ctx.replace(cache=c))
-        aux = aux + a
-    if not isinstance(aux, torch.Tensor):
+
+    def run(lo, hi, x):
+        """Layers [lo, hi) on x -> (x, their aux loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in range(lo, hi):
+            c = None
+            if mode != "train":
+                if layer < n_body:
+                    pc = cache["periods"][f"b{layer % n}"]
+                    c = {k: t[layer // n] for k, t in pc.items()}
+                else:
+                    c = cache["tail"][f"t{layer - n_body}"]
+            x, _, a = blocks.block_apply(cfg.block_pattern[layer],
+                                         params["layers"][layer], x,
+                                         ctx.replace(cache=c))
+            aux = aux + a
+        return x, aux
+
+    if mode == "train" and remat:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in range(cfg.num_periods):
+            x, a = checkpoint(run, p * n, (p + 1) * n, x, use_reentrant=False)
+            aux = aux + a
+        x, a = run(n_body, cfg.num_layers, x)
+        aux = aux + a
+    else:
+        x, aux = run(0, cfg.num_layers, x)
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
 
     if mode == "train":
@@ -190,3 +212,46 @@ def logits_of(cfg, params, hidden):
     if cfg.logit_softcap:
         logits = softcap(logits, cfg.logit_softcap)
     return logits
+
+
+def _ce_chunk(cfg, w, hc, lc, mc):
+    """Summed masked NLL and mask of one chunk: hc [B,c,D], lc, mc [B,c]."""
+    logits = hc.float() @ w.float()
+    if cfg.logit_softcap:
+        logits = softcap(logits, cfg.logit_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    nll = (logz - tgt) * mc
+    return nll.sum(), mc.sum()
+
+
+def ce_loss_chunked(cfg, params, hidden, labels, loss_mask=None,
+                    chunk: int = 512):
+    """Causal LM loss without materialising [B,S,V].
+
+    hidden: [B,S,D]; labels: [B,S] (already shifted by the caller:
+    labels[t] is the target for hidden[t]).  Chunks of ``chunk``
+    positions (the tail padded with label 0 and mask 0) each run under
+    activation checkpointing, so no [B, chunk, V] logits outlive their
+    chunk.  Returns (mean_loss, token_count), fp32 scalars.
+    """
+    B, S, D = hidden.shape
+    w = unembed_w(cfg, params)
+    if loss_mask is None:
+        loss_mask = torch.ones((B, S), dtype=torch.float32,
+                               device=hidden.device)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        loss_mask = torch.nn.functional.pad(loss_mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S + pad, chunk):
+        t, c = checkpoint(_ce_chunk, cfg, w, hidden[:, c0:c0 + chunk],
+                          labels[:, c0:c0 + chunk],
+                          loss_mask[:, c0:c0 + chunk], use_reentrant=False)
+        total = total + t
+        count = count + c
+    return total / torch.clamp(count, min=1.0), count

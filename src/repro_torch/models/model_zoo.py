@@ -4,7 +4,8 @@ of the zoo: the decoders of ``models/lm.py`` (dense global attention with
 qk-norm, parallel blocks, biases, M-RoPE and a patches front end as
 options, mixture-of-experts feed-forwards, sliding-window attention,
 RG-LRU and RWKV-6 blocks, tail blocks, tied or scaled embeddings) and the
-encoder-decoder of ``models/whisper.py``."""
+encoder-decoder of ``models/whisper.py``.  ``ce_loss`` is the chunked
+training loss of ``models/lm.py`` for both."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +23,7 @@ class Model:
     init_cache: Callable[..., Any]
     apply: Callable[..., Any]
     logits_of: Callable[..., Any]
+    ce_loss: Callable[..., Any]
 
     @property
     def name(self) -> str:
@@ -41,4 +43,5 @@ def build(arch: Union[str, cfgs.ModelConfig], *, smoke: bool = False
         init_cache=functools.partial(body.init_cache, cfg),
         apply=functools.partial(body.apply, cfg),
         logits_of=functools.partial(lm.logits_of, cfg),
+        ce_loss=functools.partial(lm.ce_loss_chunked, cfg),
     )

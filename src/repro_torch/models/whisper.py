@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as cfgs
 from repro_torch.models import attention as attn
@@ -114,11 +115,14 @@ def encode(cfg: cfgs.ModelConfig, params, frames):
     return apply_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
+def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
+          remat: bool = True):
     """Whisper forward.  batch: {"tokens": [B,S], "frames": [B,Senc,D]
     (train / prefill), optional "lengths" [B] (prefill)}.  Returns a dict
     with hidden [B,S,D] (train, decode) or last_hidden [B,D] (prefill),
-    the cache (prefill, decode) and ``aux`` (0: no mixture of experts)."""
+    the cache (prefill, decode) and ``aux`` (0: no mixture of experts).
+    In train mode with ``remat`` each decoder layer runs under activation
+    checkpointing, as in the JAX package (the encoder's layers do not)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     tokens = batch["tokens"]
@@ -137,13 +141,14 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
     x = (params["embed"]["w"][tokens.long()]
          + params["pos_embed"]["w"][positions.long()])
 
-    for layer, lp in enumerate(params["dec_layers"]):
+    def layer_fn(layer, x, enc_out):
+        lp = params["dec_layers"][layer]
         # causal self-attention
-        q, k, v = _self_qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm_eps),
-                            cfg)
+        q, k, v = _self_qkv(lp["attn"],
+                            apply_norm(lp["ln1"], x, cfg.norm_eps), cfg)
         if mode == "decode":
-            ck, cv = attn.write_kv(cache["k"][layer], cache["v"][layer], k, v,
-                                   lengths - S)
+            ck, cv = attn.write_kv(cache["k"][layer], cache["v"][layer], k,
+                                   v, lengths - S)
             o = attn.decode_attention(q, ck, cv, lengths)
         else:
             o = attn.causal_attention(q, k, v)
@@ -166,6 +171,13 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None):
         x = x + _out(xp, attn.causal_attention(qx, xk, xv, causal=False))
         # mlp
         x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg.norm_eps))
+        return x
+
+    for layer in range(cfg.num_layers):
+        if mode == "train" and remat:
+            x = checkpoint(layer_fn, layer, x, enc_out, use_reentrant=False)
+        else:
+            x = layer_fn(layer, x, enc_out)
 
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=dev)

@@ -27,8 +27,12 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
 from repro_torch.kernels.similarity_topk import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.similarity_topk.ref import topk_flips  # noqa: E402
 from repro_torch.configs import base as cfgs  # noqa: E402
@@ -454,6 +458,244 @@ def test_scan_kernels_reject_unsupported(cuda):
         rglru_ops.rglru_scan(a, a, s0[:, 0, 0])
     with pytest.raises(ValueError):
         rglru_ops.rglru_scan(w, w, s0[:, 0, 0])           # not [B,S,W]
+
+
+# ---------------------------------------------------------------------------
+# gradients through K2, K4 and K5: each wrapper's autograd.Function
+# launches the kernel forward and recomputes the plain version backward
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, seed):
+    """Outputs of fn(*inputs) and the inputs' gradients against seeded
+    output gradients."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gos = _randn(seed, [o.shape for o in outs], torch.float32,
+                 outs[0].device)
+    gos = [g.to(o.dtype) for g, o in zip(gos, outs)]
+    return outs, torch.autograd.grad(outs, inputs, gos)
+
+
+def _leaves(*ts):
+    return [t.detach().requires_grad_() for t in ts]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (70, 70, True, 0), (130, 130, True, 48), (45, 200, False, 0),
+    (1100, 1100, True, 1000)])
+def test_flash_kernel_grads(cuda, dtype, hd, Sq, Skv, causal, window):
+    """Where q, k or v requires grad K2's output carries a grad_fn; the
+    backward recomputes the plain version (over blocks of BACKWARD_ROWS
+    query rows, so Sq 1100 takes two, each at its own query offset) and
+    gives the plain path's gradients within the kernel's tolerance."""
+    B, KV, G = 2, 2, 4
+    q, k, v = _randn(31, [(B, Sq, KV * G, hd), (B, Skv, KV, hd),
+                          (B, Skv, KV, hd)], dtype, cuda)
+    before = flash_ops.LAUNCHES
+    kern = _leaves(q, k, v)
+    (out,), grads = _grads(lambda *t: flash_ops.flash_attention(
+        *t, causal=causal, window=window), kern, 32)
+    assert out.grad_fn is not None
+    assert flash_ops.LAUNCHES == before + 1
+    (ref,), ref_grads = _grads(lambda *t: flash_ops.flash_attention(
+        *t, causal=causal, window=window, impl="reference"),
+        _leaves(q, k, v), 32)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), r.float(), **TOL[dtype])
+
+
+def test_kernels_launch_without_autograd(cuda):
+    """No input requiring grad (or under no_grad): the wrappers launch the
+    kernel directly and the outputs carry no grad_fn."""
+    q, = _randn(33, [(1, 40, 4, 64)], torch.bfloat16, cuda)
+    a = _decays(34, (1, 40, 64), cuda)
+    r, k, v, w, u, s0 = _rwkv(35, 1, 40, 2, 64, torch.bfloat16, cuda)
+    outs = [flash_ops.flash_attention(q, q, q),
+            *rglru_ops.rglru_scan(a, a, a[:, 0]),
+            *rwkv_ops.rwkv6_scan(r, k, v, w, u, s0)]
+    with torch.no_grad():
+        qg = q.detach().requires_grad_()
+        outs.append(flash_ops.flash_attention(qg, q, q))
+    assert all(o.grad_fn is None for o in outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 384, 4096)])
+def test_rglru_kernel_grads(cuda, dtype, B, S, W):
+    a = _decays(36, (B, S, W), cuda).to(dtype)
+    b, h0 = _randn(37, [(B, S, W), (B, W)], dtype, cuda)
+    h0 = h0.float()
+    before = rglru_ops.LAUNCHES
+    outs, grads = _grads(rglru_ops.rglru_scan, _leaves(a, b, h0), 38)
+    assert all(o.grad_fn is not None for o in outs)
+    assert rglru_ops.LAUNCHES == before + 1
+    _, ref_grads = _grads(lambda *t: rglru_ops.rglru_scan(
+        *t, impl="reference"), _leaves(a, b, h0), 38)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref_grads):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(3, 37, 5, 64), (2, 96, 32, 64),
+                                      (2, 19, 3, 16)])
+def test_rwkv6_kernel_grads(cuda, dtype, B, S, H, hd):
+    args = _leaves(*_rwkv(39, B, S, H, hd, dtype, cuda))
+    before = rwkv_ops.LAUNCHES
+    outs, grads = _grads(rwkv_ops.rwkv6_scan, args, 40)
+    assert all(o.grad_fn is not None for o in outs)
+    assert rwkv_ops.LAUNCHES == before + 1
+    _, ref_grads = _grads(lambda *t: rwkv_ops.rwkv6_scan(
+        *t, impl="reference"), _leaves(*args), 40)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, ref_grads):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+def _named(tree, prefix=""):
+    """(path, tensor) pairs in the order of ``optim.leaves``."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _named(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in _named(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _remat_launches(cfg):
+    """K2, K4, K5 launches of one loss_fn backward with remat: twice for
+    each layer whose period runs under activation checkpointing (its
+    forward and the recompute), once for the tail's layers and whisper's
+    encoder layers, which do not."""
+    if cfg.is_encoder_decoder:
+        return {"flash": cfg.encoder_layers + 2 * 2 * cfg.num_layers,
+                "rglru": 0, "rwkv": 0}
+    n_body = cfg.num_periods * len(cfg.period)
+    got = {"flash": 0, "rglru": 0, "rwkv": 0}
+    kernel = {cfgs.ATTN: "flash", cfgs.LOCAL_ATTN: "flash",
+              cfgs.RGLRU: "rglru", cfgs.RWKV: "rwkv"}
+    for layer, blk in enumerate(cfg.block_pattern):
+        got[kernel[blk]] += 2 if layer < n_body else 1
+    return got
+
+
+@pytest.mark.parametrize("arch", ["proxy-8b", "recurrentgemma-9b",
+                                  "rwkv6-1.6b", "whisper-base"])
+def test_smoke_model_grads_through_kernels(cuda, arch):
+    """loss_fn's gradients of the fp32 smoke model (head_dim 64 where K2
+    runs) through the kernels, against the plain path's, every leaf
+    within 2e-4 of its largest plain value and nonzero (whisper's key
+    biases, whose gradient is zero in exact arithmetic, within 2e-4 of
+    the model's largest); the kernels
+    launch as remat says (``_remat_launches``), the plain path none.
+    S = 40 is past recurrentgemma's window of 32."""
+    from repro_torch.train import optim as toptim
+    from repro_torch.train import train_step as tstep
+    cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32")
+    if arch != "rwkv6-1.6b":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, S = 2, 40
+    batch = {"tokens": torch.randint(4, cfg.vocab_size, (B, S),
+                                     generator=gen, device=cuda),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=cuda)}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=cuda)
+
+    def counts():
+        return {"flash": flash_ops.LAUNCHES, "rglru": rglru_ops.LAUNCHES,
+                "rwkv": rwkv_ops.LAUNCHES}
+
+    def run(reference):
+        ctx = contextlib.ExitStack()
+        if reference:
+            ctx.enter_context(blocks.use_scan_impl("reference"))
+            ctx.enter_context(attention.use_flash_impl("reference"))
+        with ctx:
+            before = counts()
+            loss, _, grads = tstep.make_grad_fn(model)(params, batch)
+            torch.cuda.synchronize()
+            return loss, grads, {k: v - before[k]
+                                 for k, v in counts().items()}
+
+    loss, grads, launched = run(False)
+    ref_loss, ref_grads, ref_launched = run(True)
+    assert launched == _remat_launches(cfg)
+    assert sum(launched.values()) > 0
+    assert set(ref_launched.values()) == {0}
+    torch.testing.assert_close(loss, ref_loss, rtol=2e-4, atol=0)
+    top = max(float(r.abs().max()) for r in toptim.leaves(ref_grads))
+    for (name, g), r in zip(_named(grads), toptim.leaves(ref_grads)):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+        if name.endswith("/bk"):
+            # zero in exact arithmetic (softmax ignores a shift of every
+            # logit of a query): both sides are rounding
+            assert max(float(g.abs().max()), float(r.abs().max())) \
+                <= 2e-4 * top, name
+        else:
+            assert float((g - r).abs().max()) <= 2e-4 * float(
+                r.abs().max()), name
+
+
+# The gradient mechanics of the three Functions on the CPU, in float64,
+# with the plain version standing in for the kernel's launch (a stand-in
+# only these tests pass: the wrappers pass the kernel).
+
+
+def _flash_stand_in(q, k, v, *, causal, window):
+    return flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window,
+        sm_scale=flash_ops.sm_scale_of(q.shape[-1])).transpose(1, 2)
+
+
+def _f64(seed, shapes, positive=()):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        x = rng.random(s) if i in positive else rng.standard_normal(s)
+        out.append(torch.from_numpy(x).requires_grad_())
+    return out
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (7, 7, True, 0), (7, 7, True, 3), (5, 9, False, 0), (5, 9, True, 0),
+    (6, 11, True, 4)])
+def test_flash_autograd_function_gradcheck(Sq, Skv, causal, window):
+    """Blocks of 2 query rows, so every block but the first recomputes at
+    a query offset of its own."""
+    q, k, v = _f64(41, [(2, Sq, 4, 8), (2, Skv, 2, 8), (2, Skv, 2, 8)])
+    assert torch.autograd.gradcheck(
+        lambda *t: flash_ops.FlashAttentionFn.apply(
+            _flash_stand_in, *t, causal, window, flash_ops.sm_scale_of(8),
+            2), (q, k, v))
+
+
+def test_rglru_autograd_function_gradcheck():
+    a, b, h0 = _f64(42, [(2, 5, 3), (2, 5, 3), (2, 3)], positive=(0,))
+    assert torch.autograd.gradcheck(
+        lambda *t: rglru_ops.RglruScanFn.apply(rglru_scan_ref, *t),
+        (a, b, h0))
+
+
+def test_rwkv6_autograd_function_gradcheck():
+    args = _f64(43, [(1, 4, 2, 3)] * 4 + [(2, 3), (1, 2, 3, 3)],
+                positive=(3,))
+    assert torch.autograd.gradcheck(
+        lambda *t: rwkv_ops.Rwkv6ScanFn.apply(rwkv6_scan_ref, *t), args)
 
 
 # ---------------------------------------------------------------------------
