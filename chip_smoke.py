@@ -239,6 +239,39 @@ GRAD_CELLS = {"proxy-8b": (TRAIN_LAYERS, TRAIN_B, TRAIN_S, "bfloat16"),
               "whisper-base": (None, 8, 128, "bfloat16")}
 # train steps of each cell after its gradient check (the loss must fall)
 GRAD_STEPS = 2
+# The mesh phase (mesh_path), gates stated before its first run.
+# proxy-8b at full width decodes MESH_STEPS tokens at B = MESH_B over a
+# MESH_SLOTS-slot cache (17.2 GB of bf16) filled from seeds, the rows'
+# lengths MESH_LENGTHS (rows 0-1 leave the second half of the cache, a
+# rank's whole chunk on two ranks, empty), on (a) a 1x1 mesh over NCCL
+# with the shard context armed, and (b) a (data=1, model=2) mesh of two
+# gloo ranks on the one card (weights TP-sharded, cache sequence-
+# sharded).  Both are fed the unarmed one-rank path's greedy tokens; (a)
+# is held to that path's logits and (b) to (a)'s: each row's relative L2
+# within MESH_LOGITS_REL (the served proxy-8b's decode gate), and the
+# greedy token equal except where the reference's top-1 minus top-2 logit
+# is under MESH_TOKEN_MARGIN
+MESH_B = 4
+MESH_SLOTS = 32768
+MESH_LENGTHS = (1000, 9000, 20000, 32000)
+MESH_STEPS = 4
+MESH_LOGITS_REL = 0.05
+MESH_TOKEN_MARGIN = 0.1
+# (b) qwen2-moe-a2.7b at full width, expert-parallel over model=2 (64
+# padded experts, 32 a rank), one train-mode pass of MESH_MOE_B x
+# MESH_MOE_S tokens, held to the one-rank pass: every position's logits
+# within the zoo's SERVE_TOL (relative L2), or the pass's first router
+# flips within ROUTER_MARGIN_TOL of the one-rank decision
+MESH_MOE_B, MESH_MOE_S = 4, 64
+# (b) one launch/train.py --model-parallel 2 --backend gloo step of
+# proxy-8b at TRAIN_LAYERS layers against the one-rank step: the losses
+# within MESH_TRAIN_LOSS_REL of each other (bf16 rounding of the row-
+# parallel sums); no checkpoint (--ckpt-every 0: the training phase's
+# two already take the card's disk budget)
+MESH_TRAIN_LOSS_REL = 5e-3
+# the mesh phase's processes must end within this many seconds
+MESH_RANK_TIMEOUT = 600
+
 # each kernel's source and the TPU kernel it replaces
 KERNEL_FILES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -378,14 +411,14 @@ def bound(nbytes: float, ops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_bound(q, kc, lengths):
+def decode_bound(q, kc, lengths, lse=True):
     B, _, H, hd = q.shape
     KV = kc.shape[2]
     es = q.element_size()
     keys = int(lengths.clamp(0, kc.shape[1]).sum())
     nbytes = (2 * B * H * hd * es             # q in, out
               + 2 * keys * KV * hd * es       # valid K and V rows
-              + 4 * B + 4 * B * H)            # lengths, lse
+              + 4 * B + 4 * B * H * lse)      # lengths, lse
     ops = 4.0 * keys * H * hd                 # q.k and p.v
     return bound(nbytes, ops, str(q.dtype).split(".")[-1])
 
@@ -1182,9 +1215,46 @@ def serve_and_check(torch, eng, errs):
         errs[name] = max(errs[name], err)
         rows.append(kernel_row(name, launches[name], errs[name], t))
     marks.append(("K1 / K2 timing", time.perf_counter()))
+    if arch == "proxy-8b":
+        print_roofline(eng, {"decode": step_ms, "prefill": prefill_ms})
+        marks.append(("roofline", time.perf_counter()))
     print(f"{arch} phase seconds: " + ", ".join(
         f"{a} {t1 - t0:.1f}" for (_, t0), (a, t1) in zip(marks, marks[1:])))
     return rows
+
+
+def print_roofline(eng, step_ms):
+    """(c) ``backend_roofline()`` after the served batch: each step kind's
+    counted FLOPs (K1 / K2 by their reported work), bytes, roofline times
+    and MFU bound beside the measured median step.  Gates: FLOPs > 0 and
+    0 <= mfu_bound <= 1."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    rep = eng.backend_roofline()
+    launched = dec_ops.LAUNCHES + flash_ops.LAUNCHES - launched
+    if set(rep) != {"prefill", "decode"}:
+        fail(f"backend_roofline kinds {sorted(rep)}")
+    for kind, r in rep.items():
+        med = statistics.median(step_ms[kind]) if step_ms[kind] else \
+            float("nan")
+        by = r["detail"]["flops_by_path"]
+        print(f"roofline {r['arch']} {r['shape']}: tokens/step "
+              f"{r['tokens_per_step']}, FLOPs {r['hlo_flops_per_dev']:.4g} "
+              f"(dots {by.get('dot', 0):.4g}, K1 "
+              f"{by.get('decode_attention', 0):.4g}, K2 "
+              f"{by.get('flash_attention', 0):.4g}), bytes "
+              f"{r['hlo_bytes_per_dev']:.4g}, t_compute "
+              f"{r['t_compute_s'] * 1e3:.4f} ms, t_memory "
+              f"{r['t_memory_s'] * 1e3:.4f} ms, bound {r['bottleneck']}, "
+              f"mfu_bound {r['mfu_bound']:.4f}; measured median step "
+              f"{med:.3f} ms; {card_line()}")
+        if not (r["hlo_flops_per_dev"] > 0 and 0.0 <= r["mfu_bound"] <= 1.0):
+            fail(f"backend_roofline {kind}: FLOPs "
+                 f"{r['hlo_flops_per_dev']} mfu_bound {r['mfu_bound']}")
+    print(f"roofline: analysis took {time.perf_counter() - t0:.1f} s "
+          f"({launched} K1 / K2 launches of its own)")
 
 
 def gate_err(name, err, dtype):
@@ -3369,6 +3439,11 @@ def main() -> int:
 
     # 1-2. build, then hold each kernel against its plain version
     build_kernels(dec_ops, flash_ops, topk_ops, rglru_ops, rwkv_ops)
+    if "--only-mesh" in sys.argv[1:]:     # a development run of one phase
+        rows = mesh_path(torch, {"decode_attention": 0.0})
+        print(card)
+        print(json.dumps({"kernels": rows}))
+        return 0
     errs = check_kernels(torch, dec_ops, flash_ops, dev)
     errs["similarity_topk"] = check_topk(torch, topk_ops, dev)
     check_scans(torch, rglru_ops, rwkv_ops, dev, errs)
@@ -3398,6 +3473,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     topk_full_shapes(torch, topk_ops, dev)
+    # 8b. the device mesh: proxy-8b's decode cell armed on a 1x1 NCCL
+    #     mesh, then two gloo ranks on the card (sequence-sharded decode
+    #     through K1, expert parallelism, a --model-parallel 2 train step)
+    rows += mesh_path(torch, errs)
     # 9-10. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
     rows += rwkv_path(torch, errs)
     rows += recurrentgemma_path(torch, errs)
@@ -3431,10 +3510,17 @@ def _leaves(tree):
         yield tree
 
 
-def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200):
+def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200, lse=False):
     import torch.nn.functional as F
-    out = dec_ops.decode_attention_cuda(q, kc, vc, lengths)
-    ref = dec_ops.flash_decode(q, kc, vc, lengths, impl="reference")
+    out = dec_ops.decode_attention_cuda(q, kc, vc, lengths, return_lse=lse)
+    ref = dec_ops.flash_decode(q, kc, vc, lengths, impl="reference",
+                               return_lse=lse)
+    if lse:
+        (out, out_lse), (ref, ref_lse) = out, ref
+        fin = torch.isfinite(ref_lse)
+        if not bool((torch.isfinite(out_lse) | (out_lse <= -1e29))[
+                ~fin].all()) or max_err(out_lse[fin], ref_lse[fin]) > 1e-2:
+            fail("K1's lse disagrees with its plain version")
     err = max_err(out, ref)
     B, _, H, hd = q.shape
     Smax = kc.shape[1]
@@ -3442,14 +3528,15 @@ def time_decode(torch, dec_ops, q, kc, vc, lengths, iters=200):
             < lengths[:, None])[:, None, None]            # [B,1,1,Smax]
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     ms = cuda_time_ms(lambda: dec_ops.decode_attention_cuda(
-        q, kc, vc, lengths), iters)
+        q, kc, vc, lengths, return_lse=lse), iters)
     plain_ms = cuda_time_ms(lambda: dec_ops.flash_decode(
-        q, kc, vc, lengths, impl="reference"), max(iters // 10, 5))
+        q, kc, vc, lengths, impl="reference", return_lse=lse),
+        max(iters // 10, 5))
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
     dev_ms = device_ms(lambda: dec_ops.decode_attention_cuda(
-        q, kc, vc, lengths))
-    b_ms, b_by = decode_bound(q, kc, lengths)
+        q, kc, vc, lengths, return_lse=lse))
+    b_ms, b_by = decode_bound(q, kc, lengths, lse)
     print(f"time K1 decode B={B} H={H} KV={kc.shape[2]} hd={hd} Smax={Smax} "
           f"lengths={lengths.tolist()} {str(q.dtype).split('.')[-1]}: "
           f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
@@ -3554,6 +3641,399 @@ def profile_served(torch, eng, reqs):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, total) in top[:12]:
         print(f"  {total / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the device mesh
+# ---------------------------------------------------------------------------
+
+
+def fill_mesh_cache(torch, cache, rank):
+    """Fill this rank's sequence chunk of a [P, B, MESH_SLOTS, KV, hd]
+    cache (DTensors placed by the cache specs) from seeds: slots
+    [c * half, (c + 1) * half) of layer p take the same numbers on every
+    mesh, so a two-rank cache holds (a)'s values.  Sets the lengths."""
+    half = MESH_SLOTS // 2
+    dev = torch.device("cuda")
+    for name in ("k", "v"):
+        loc = cache["periods"]["b0"][name].to_local()
+        per = loc.shape[2]
+        for p in range(loc.shape[0]):
+            for c in range(per // half):
+                glob = rank * per // half + c
+                gen = torch.Generator(device=dev).manual_seed(
+                    SEED * 1000 + 4 * p + 2 * glob + (name == "v"))
+                blk = torch.randn((loc.shape[1], half) + tuple(loc.shape[3:]),
+                                  generator=gen, device=dev)
+                loc[p, :, c * half:(c + 1) * half] = blk.to(loc.dtype)
+    cache["len"].to_local().copy_(torch.tensor(MESH_LENGTHS,
+                                               dtype=torch.int32))
+
+
+def mesh_decode(torch, cell, params, cache, tokens, dec_ops):
+    """MESH_STEPS decode steps of ``cell``, fed ``tokens`` [STEPS, B, 1]:
+    (logits [STEPS, B, V] fp32 on the host, step ms, K1 launches, calls of
+    flash_decode_sharded)."""
+    calls = []
+    logits, ms = [], []
+    dec_ops.LAUNCHES = 0
+    with Spy(dec_ops, "flash_decode_sharded", lambda a, k, o: calls.append(1)):
+        for t in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache, lg = cell.run(params, cache, {"tokens": tokens[t]})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.float().cpu())
+    return torch.stack(logits), ms, dec_ops.LAUNCHES, len(calls)
+
+
+def hold_mesh_logits(torch, what, got, ref):
+    """Each row's relative L2 within MESH_LOGITS_REL of the one-rank
+    path's, and its greedy token equal except within MESH_TOKEN_MARGIN of
+    a tie.  Returns the largest relative L2."""
+    rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = got.argmax(-1) != ref.argmax(-1)
+    close = differ & (margin < MESH_TOKEN_MARGIN)
+    print(f"mesh {what}: max row rel. L2 {rel:.4g} (tol {MESH_LOGITS_REL}),"
+          f" greedy tokens differing {int(differ.sum())} of "
+          f"{differ.numel()} ({int(close.sum())} within "
+          f"{MESH_TOKEN_MARGIN} of a tie)")
+    if not rel <= MESH_LOGITS_REL:
+        fail(f"mesh {what}: logits rel. L2 {rel} > {MESH_LOGITS_REL}")
+    if bool((differ & ~close).any()):
+        fail(f"mesh {what}: greedy tokens differ away from a tie")
+    return rel
+
+
+def mesh_one_card(torch, dec_ops, tmp):
+    """(a) proxy-8b's decode cell on a 1x1 mesh over NCCL, armed, against
+    the unarmed path on the same weights and cache.  Writes the tokens
+    and (a)'s logits for (b) into ``tmp``; returns K1's timing at the
+    sharded chunk shape and the phase's numbers."""
+    import torch.distributed as dist
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    store = dist.FileStore(str(Path(tmp) / "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_host_mesh(model=1, device_type="cuda")
+        cfg = cfgs.get_config("proxy-8b")
+        model = model_zoo.build(cfg)
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        shape = cfgs.ShapeSpec("decode_32k_b4", MESH_SLOTS, MESH_B, "decode")
+        cell = steps.build_cell(cfg, shape, mesh)
+        cache = cell.zeros_cache(dev)
+        fill_mesh_cache(torch, cache, 0)
+        print(f"mesh (a): proxy-8b {cfg.num_layers} layers d_model "
+              f"{cfg.d_model}, cache {MESH_B} x {MESH_SLOTS} slots "
+              f"({2 * cache['periods']['b0']['k'].to_local().nbytes / 1e9:.1f}"
+              f" GB), lengths {list(MESH_LENGTHS)}")
+        # the unarmed one-rank path on the same storage: greedy tokens
+        plain = {"periods": {"b0": {n: cache["periods"]["b0"][n].to_local()
+                                    for n in ("k", "v")}},
+                 "len": torch.tensor(MESH_LENGTHS, dtype=torch.int32,
+                                     device=dev)}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        tok = torch.randint(3, cfg.vocab_size, (MESH_B, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        toks, ref, plain_ms = [], [], []
+        with torch.no_grad():
+            for _ in range(MESH_STEPS):
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model.apply(params, {"tokens": tok}, mode="decode",
+                                  cache=plain)
+                lg = model.logits_of(params, out["hidden"][:, 0])
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+                ref.append(lg.float().cpu())
+                tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+        ref = torch.stack(ref)
+        tokens = torch.stack(toks)
+        # armed: the decode cell on the placed weights and cache
+        cache["len"].to_local().copy_(torch.tensor(MESH_LENGTHS,
+                                                   dtype=torch.int32))
+        params, = cell.place(params)
+        got, ms, k1, sharded = mesh_decode(torch, cell, params, cache,
+                                           tokens, dec_ops)
+        print(f"mesh (a): K1 launches {k1} through flash_decode_sharded "
+              f"({sharded} calls; expected {cfg.num_layers * MESH_STEPS}); "
+              f"decode step median {statistics.median(ms):.3f} ms armed, "
+              f"{statistics.median(plain_ms):.3f} ms unarmed")
+        if k1 != cfg.num_layers * MESH_STEPS or sharded != k1:
+            fail("mesh (a): K1 did not run once a layer a step through "
+                 "flash_decode_sharded")
+        rel = hold_mesh_logits(torch, "(a) 1x1 NCCL vs unarmed", got, ref)
+        torch.save({"tokens": tokens.cpu(), "logits": got},
+                   str(Path(tmp) / "mesh_a.pt"))
+        # K1 at the sharded chunk shape: half the cache, lse on, the
+        # chunk's local lengths (rank 0's on two ranks)
+        half = MESH_SLOTS // 2
+        kc = cache["periods"]["b0"]["k"].to_local()[0, :, :half]
+        vc = cache["periods"]["b0"]["v"].to_local()[0, :, :half]
+        q = torch.randn((MESH_B, 1, cfg.num_heads, cfg.head_dim),
+                        generator=gen, device=dev).to(kc.dtype)
+        loc = torch.tensor(MESH_LENGTHS, dtype=torch.int32,
+                           device=dev).clamp(0, half)
+        t = time_decode(torch, dec_ops, q, kc, vc, loc, lse=True)
+        return {"k1_launches": k1, "rel": rel, "step_ms": ms,
+                "plain_ms": plain_ms, "chunk": t,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank, tmp, n_ranks):
+    """One rank of (b): two gloo ranks on the one card, proxy-8b's decode
+    cell on (data=1, model=2), then qwen2-moe-a2.7b expert-parallel.
+    Writes its results to ``tmp``/rank<r>.pt."""
+    import faulthandler
+    import traceback
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.FileStore(str(Path(tmp) / "gloo_store"), n_ranks)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=n_ranks)
+    res = {}
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model=n_ranks, device_type="cuda")
+        res["proxy"] = mesh_rank_proxy(torch, mesh, rank, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["moe"] = mesh_rank_moe(torch, mesh, rank)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    torch.save(res, str(Path(tmp) / f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_rank_proxy(torch, mesh, rank, tmp):
+    from repro_torch.configs import base as cfgs
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("proxy-8b")
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    shape = cfgs.ShapeSpec("decode_32k_b4", MESH_SLOTS, MESH_B, "decode")
+    cell = steps.build_cell(cfg, shape, mesh)
+    params, = cell.place(params)
+    w_gb = sum(t.to_local().nbytes for t in _leaves(params)) / 1e9
+    cache = cell.zeros_cache(dev)
+    fill_mesh_cache(torch, cache, rank)
+    c_gb = sum(t.to_local().nbytes for t in _leaves(cache)) / 1e9
+    built = time.perf_counter() - t0
+    ref = torch.load(str(Path(tmp) / "mesh_a.pt"))
+    got, ms, k1, sharded = mesh_decode(torch, cell, params, cache,
+                                       ref["tokens"].to(dev), dec_ops)
+    out = {"logits": got, "step_ms": ms, "k1": k1, "sharded": sharded,
+           "weights_gb": w_gb, "cache_gb": c_gb, "built_s": built,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, cache
+    return out
+
+
+def mesh_rank_moe(torch, mesh, rank):
+    """qwen2-moe-a2.7b at full width: rank 0 runs the one-rank pass, then
+    both ranks the expert-parallel one; rank 0 holds them together."""
+    import torch.distributed as dist
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch import sharding
+    from repro_torch.models import model_zoo, shardctx
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = cfgs.get_config("qwen2-moe-a2.7b")
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tokens = torch.randint(3, cfg.vocab_size, (MESH_MOE_B, MESH_MOE_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    tap = RouterTap(cfg)
+    one, one_recs = None, []
+    if rank == 0:
+        with tap.installed(), tap.into(one_recs, "train"), torch.no_grad():
+            o = model.apply(params, {"tokens": tokens}, mode="train")
+            one = model.logits_of(params, o["hidden"]).float()
+    dist.barrier()
+    params = sharding.distribute(mesh, params, sharding.param_specs(
+        mesh, params, fsdp=None, cfg=cfg))
+    experts_local = params["layers"][0]["moe"]["experts"]["wi"].to_local()
+    batch = sharding.distribute(mesh, {"tokens": tokens},
+                                sharding.batch_specs(mesh, {"tokens": tokens}))
+    ep_recs = []
+
+    def full_routing(args, kw, out):
+        p, x, ctx = args
+        if ctx.mode == "train":
+            full = {"router": {"w": p["router"]["w"].full_tensor()}}
+            ep_recs.append(routing(full, x.full_tensor(), ctx))
+    ep_calls = []
+    from repro_torch.models import blocks
+    with Spy(blocks, "moe_apply", full_routing), \
+            Spy(blocks, "_moe_ep", lambda a, k, o: ep_calls.append(1)), \
+            shardctx.armed(mesh), torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o = model.apply(params, batch, mode="train")
+        got = model.logits_of(params, o["hidden"]).full_tensor().float()
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t1
+    res = {"experts_local": tuple(experts_local.shape),
+           "ep_layers": len(ep_calls), "ep_s": ep_s,
+           "seconds": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        rel = ((got - one).norm(dim=-1) / one.norm(dim=-1))     # [B, S]
+        flips = expert_flips(ep_recs, one_recs, cfg.num_layers)
+        first = first_flips(flips)
+        res.update(rel=float(rel.max()), flips=len(flips),
+                   first=fmt_flips(first), explained=explained(first),
+                   rows_over=int((rel > SERVE_TOL["qwen2-moe-a2.7b"][
+                       "decode_logits_rel"]).sum()))
+    del params
+    return res
+
+
+def run_ranks(fn, args, n):
+    """Start n spawned processes of ``fn(rank, *args)`` and wait for them
+    (MESH_RANK_TIMEOUT); a rank that fails or hangs fails the phase."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.time() + MESH_RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                fail(f"mesh ranks did not finish in {MESH_RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def mesh_train(torch):
+    """(b) one launch/train.py step of proxy-8b at TRAIN_LAYERS layers on
+    one rank, then with --model-parallel 2 --backend gloo (the launcher
+    starts its two ranks); and --backend nccl with two ranks on one card
+    must refuse."""
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        argv = ["--no-smoke", "--arch", "proxy-8b", "--layers",
+                str(TRAIN_LAYERS), "--steps", "1", "--batch", str(TRAIN_B),
+                "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+                "--ckpt-every", "0", "--ckpt-dir", d]
+        try:
+            train.run(argv + ["--model-parallel", "2"])
+        except ValueError as e:
+            print(f"mesh train: --backend nccl with 2 ranks on "
+                  f"{torch.cuda.device_count()} card(s) refused: {e}")
+        else:
+            fail("mesh train: --backend nccl ran two ranks on one card")
+        t0 = time.perf_counter()
+        one = train.run(argv)
+        one_s = time.perf_counter() - t0
+        del one["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = train.run(argv + ["--model-parallel", "2", "--backend",
+                                "gloo"])
+        two_s = time.perf_counter() - t0
+    l1, l2 = one["history"][0]["loss"], two["history"][0]["loss"]
+    rel = abs(l2 - l1) / abs(l1)
+    print(f"mesh train: proxy-8b {TRAIN_LAYERS} layers, {TRAIN_B} x "
+          f"{TRAIN_S} tokens: loss {l1:.6f} one rank, {l2:.6f} on "
+          f"--model-parallel 2 (rel. {rel:.3g}, tol {MESH_TRAIN_LOSS_REL}); "
+          f"step {one['history'][0]['seconds']:.3f} s / "
+          f"{two['history'][0]['seconds']:.3f} s, runs {one_s:.1f} s / "
+          f"{two_s:.1f} s")
+    if not rel <= MESH_TRAIN_LOSS_REL:
+        fail(f"mesh train: loss {l2} vs one rank's {l1}")
+
+
+def mesh_path(torch, errs):
+    """The mesh phase: (a) proxy-8b's decode cell armed on a 1x1 NCCL
+    mesh, held to the unarmed path; (b) two gloo ranks on the card:
+    proxy-8b TP / sequence-sharded, qwen2-moe-a2.7b expert-parallel, and a
+    --model-parallel 2 train step.  Returns K1's row at the sharded chunk
+    shape."""
+    import tempfile
+    from repro_torch.configs import base as cfgs
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    t0 = time.perf_counter()
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        a = mesh_one_card(torch, dec_ops, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ta = time.perf_counter()
+        run_ranks(mesh_rank, (tmp, 2), 2)
+        ranks = [torch.load(str(Path(tmp) / f"rank{r}.pt")) for r in (0, 1)]
+        ref = torch.load(str(Path(tmp) / "mesh_a.pt"))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            fail(f"mesh rank {r}:\n{res['error']}")
+    tb = time.perf_counter()
+    L = cfgs.get_config("proxy-8b").num_layers
+    for r, res in enumerate(ranks):
+        p = res["proxy"]
+        print(f"mesh (b) rank {r}: proxy-8b weights {p['weights_gb']:.2f} GB,"
+              f" cache {p['cache_gb']:.2f} GB, built in {p['built_s']:.1f} s;"
+              f" K1 launches {p['k1']} ({p['sharded']} sharded calls), "
+              f"decode step median {statistics.median(p['step_ms']):.1f} ms,"
+              f" peak {p['peak_gb']:.1f} GB; {card}")
+        if p["k1"] != L * MESH_STEPS or p["sharded"] != L * MESH_STEPS:
+            fail(f"mesh (b) rank {r}: K1 ran {p['k1']} times, expected "
+                 f"{L * MESH_STEPS}")
+        hold_mesh_logits(torch, f"(b) rank {r} two gloo ranks vs (a)",
+                         p["logits"], ref["logits"])
+    for r, res in enumerate(ranks):
+        m = res["moe"]
+        print(f"mesh (b) rank {r}: qwen2-moe-a2.7b experts a rank "
+              f"{m['experts_local'][0]}, {m['ep_layers']} expert-parallel "
+              f"layers, pass {m['ep_s']:.2f} s, peak {m['peak_gb']:.1f} GB")
+        if m["experts_local"][0] != 32 or m["ep_layers"] != 24:
+            fail(f"mesh (b) rank {r}: qwen2-moe not expert-parallel "
+                 f"({m['experts_local']}, {m['ep_layers']} layers)")
+    m = ranks[0]["moe"]
+    tol = SERVE_TOL["qwen2-moe-a2.7b"]["decode_logits_rel"]
+    print(f"mesh (b): qwen2-moe expert-parallel vs one rank: max rel. L2 "
+          f"{m['rel']:.4g} (tol {tol}), {m['rows_over']} positions over, "
+          f"{m['flips']} router flips; first {m['first'] or 'none'}")
+    if m["rel"] > tol and not m["explained"]:
+        fail("mesh (b): qwen2-moe expert-parallel logits differ past "
+             "SERVE_TOL without a router flip within ROUTER_MARGIN_TOL")
+    mesh_train(torch)
+    tc = time.perf_counter()
+    print(f"mesh: phase {tc - t0:.1f} s ((a) {ta - t0:.1f} s, (b) ranks "
+          f"{tb - ta:.1f} s, train {tc - tb:.1f} s); (a) peak "
+          f"{a['peak_gb']:.1f} GB; {card}")
+    t = a["chunk"]
+    err = gate_err("decode_attention", t.pop("max_abs_err"), torch.bfloat16)
+    errs["decode_attention"] = max(errs["decode_attention"], err)
+    return [kernel_row("decode_attention", a["k1_launches"], err, t,
+                       path="mesh: sharded chunk (a)",
+                       shape=f"B={MESH_B} slots={MESH_SLOTS // 2} lse")]
 
 
 if __name__ == "__main__":

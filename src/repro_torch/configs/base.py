@@ -185,6 +185,35 @@ class ModelConfig:
         return self.param_count() - inactive * n_moe_layers
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell: a step of ``kind`` over ``global_batch``
+    sequences of ``seq_len`` tokens (a decode step: one token against a
+    cache of ``seq_len``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+# The JAX package's assigned shape cells.
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+# The JAX package's assigned architectures, and the cascade pair it adds.
+ARCH_IDS = ("recurrentgemma-9b", "command-r-35b", "qwen3-32b",
+            "stablelm-12b", "minitron-8b", "whisper-base",
+            "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b", "qwen2-vl-7b",
+            "rwkv6-1.6b")
+EXTRA_IDS = ("proxy-8b", "oracle-70b")
+
+
 # Architectures the port implements: the dense global-attention decoders
 # (the cascade pair, qwen3-32b with qk-norm, command-r-35b and
 # stablelm-12b with parallel blocks, minitron-8b), the mixture-of-experts
@@ -232,3 +261,11 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced config of the same family for CPU smoke tests."""
     return _module(arch).smoke_config()
+
+
+def cells(arch: str) -> Tuple[ShapeSpec, ...]:
+    """The shape cells that apply to an arch: ``long_500k`` only for the
+    sub-quadratic ones, as in the JAX package."""
+    cfg = get_config(arch)
+    return tuple(s for s in SHAPES
+                 if s.name != "long_500k" or cfg.sub_quadratic)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Sequence
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from repro_torch.inference.backend import (COMPLETE, SCORE, EngineFailure,
                                            Request, Result, credits_for)
 from repro_torch.inference.paged_kv import PagedKVCache
 from repro_torch.models import attention
+from repro_torch.train.optim import leaves, map_tree
 
 
 def supports(cfg) -> bool:
@@ -108,6 +109,8 @@ class ContinuousBatcher:
         self.prefill_tokens = 0    # prompt tokens written via chunked prefill
         self.decode_tokens = 0     # decode-step slot participations
         self.peak_blocks = 0
+        # roofline: the arguments of the largest step of each kind
+        self._step_args: Dict[str, Tuple[int, Tuple[Any, ...]]] = {}
 
     # ------------------------------------------------------------------
     # serve loop
@@ -222,10 +225,11 @@ class ContinuousBatcher:
             toks[s.slot, :v] = s.enc[s.filled:s.filled + v]
             counts[s.slot] = v
         dev = self._device_state(active, nb)
-        logits, new_lens = self._prefill_fn(
-            dev["tables"], dev["lens"],
-            torch.as_tensor(counts, device=self.device),
-            torch.as_tensor(toks, device=self.device))
+        args = (dev["tables"], dev["lens"],
+                torch.as_tensor(counts, device=self.device),
+                torch.as_tensor(toks, device=self.device))
+        self._record_step("prefill", B * C, args)
+        logits, new_lens = self._prefill_fn(*args)
         self.prefill_steps += 1
         self.prefill_tokens += int(counts.sum())
         for s in pre:
@@ -282,9 +286,10 @@ class ContinuousBatcher:
         for s in dec:
             cur[s.slot, 0] = s.cur
         dev = self._device_state(active, nb)
-        nxt_dev, new_lens = self._decode_fn(
-            dev["tables"], dev["lens"], dev["act"],
-            torch.as_tensor(cur, device=self.device))
+        args = (dev["tables"], dev["lens"], dev["act"],
+                torch.as_tensor(cur, device=self.device))
+        self._record_step("decode", B, args)
+        nxt_dev, new_lens = self._decode_fn(*args)
         self.decode_steps += 1
         self.decode_tokens += len(dec)
         nxt = nxt_dev.cpu().numpy().astype(np.int32)
@@ -344,6 +349,37 @@ class ContinuousBatcher:
     # telemetry
     # ------------------------------------------------------------------
 
+    def _record_step(self, kind: str, tokens_per_step: int, args) -> None:
+        """Keep copies of the arguments of the largest step of each kind
+        (the latest of equals), as the JAX package records its steps'
+        abstract arguments."""
+        if (kind not in self._step_args
+                or tokens_per_step >= self._step_args[kind][0]):
+            self._step_args[kind] = (tokens_per_step,
+                                     tuple(a.clone() for a in args))
+
+    def roofline_report(self) -> Dict[str, Any]:
+        """Roofline-derived utilization per step kind (prefill vs decode):
+        the largest step of each kind runs again under ``launch/op_cost``'s
+        counter (``launch/roofline.analyze_step``), on a copy of the KV
+        pool, so the served state is untouched.  Empty before any step."""
+        from repro_torch.launch import roofline
+        n_params = sum(t.numel() for t in leaves(self.engine.params))
+        fns = {"prefill": self._prefill_fn, "decode": self._decode_fn}
+        out: Dict[str, Any] = {}
+        for kind, (tps, args) in self._step_args.items():
+            pool = self.kv.pool
+            self.kv.pool = map_tree(torch.clone, pool)
+            try:
+                r = roofline.analyze_step(
+                    fns[kind], args, arch=self.engine.arch,
+                    shape=f"{kind}-step B={self.slots}",
+                    model_flops=2.0 * n_params * tps)
+            finally:
+                self.kv.pool = pool
+            out[kind] = {"tokens_per_step": tps, **r.to_dict()}
+        return out
+
     def stats(self) -> Dict[str, Any]:
         occ = (self.decode_tokens / (self.decode_steps * self.slots)
                if self.decode_steps else 0.0)
@@ -359,3 +395,4 @@ class ContinuousBatcher:
             "kv_block_size": self.block_size,
             "kv_peak_blocks": self.peak_blocks,
         }
+

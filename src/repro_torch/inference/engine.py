@@ -444,3 +444,11 @@ class TorchInferenceEngine:
         if self._batcher is not None:
             d.update(self._batcher.stats())
         return d
+
+    def backend_roofline(self) -> Dict[str, Any]:
+        """Roofline-derived utilization of the continuous backend's step
+        functions (prefill vs decode), from ``launch/roofline.py``; empty
+        on the static backend or before any request was served."""
+        if self._batcher is None:
+            return {}
+        return self._batcher.roofline_report()

@@ -1,19 +1,29 @@
-"""Flash-decode wrappers in the model layout, and the paged gather.
+"""Flash-decode wrappers in the model layout, the paged gather, and the
+sequence-sharded decode of the mesh path.
 
 ``flash_decode`` dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref.py``); a CUDA tensor launches the hand-written
 kernel in ``csrc/decode_attention.cu``, or raises if it cannot be built or
 launched.  ``impl="reference"`` runs the plain version on any device; only
-comparisons of the kernel against it pass that.
+comparisons of the kernel against it pass that.  DTensors run on each
+rank's rows with the whole cache (``kernels.local``).
+
+``flash_decode_sharded`` takes a cache whose sequence axis is sharded over
+a mesh axis: each rank runs ``flash_decode(..., return_lse=True)`` over
+its chunk (the kernel on the card) and the partials are combined by their
+logsumexp with one all-reduce MAX and two all-reduce SUMs over that axis.
+``write_kv_sharded`` writes a decode step's k / v into the rank that owns
+the position, with no collective.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import struct
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, local, report
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_with_lse_ref)
 
@@ -81,7 +91,20 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                          f"16-byte aligned rows; got hd={hd}, H={H}, KV={KV}")
     build.check(err, "decode_attention")
     LAUNCHES += 1
+    report("decode_attention", lambda: work(q, k_cache, lengths, return_lse))
     return (out, lse) if return_lse else out
+
+
+def work(q, k_cache, lengths, return_lse: bool = False):
+    """(FLOPs, bytes) of one launch over the valid keys: q.k and p.v;
+    q, the valid K and V rows and lengths read, out (and lse) written."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    es = q.element_size()
+    keys = int(lengths.clamp(0, k_cache.shape[1]).sum())
+    return (4.0 * keys * H * hd,
+            2 * B * H * hd * es + 2 * keys * KV * hd * es + 4 * B
+            + (4 * B * H if return_lse else 0))
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, impl: str = "auto",
@@ -92,6 +115,12 @@ def flash_decode(q, k_cache, v_cache, lengths, *, impl: str = "auto",
     on CPU) or "reference" (the plain version)."""
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
+    if local.is_dtensor(q):          # each rank: its rows, the whole cache
+        d = ("dp", None, None, None)
+        return local.run_local(
+            lambda *t: flash_decode(*t, impl=impl, return_lse=return_lse),
+            (q, k_cache, v_cache, lengths), (d, d, d, ("dp",)),
+            (d, ("dp", None, None)) if return_lse else d)
     if impl == "auto" and q.is_cuda:
         return decode_attention_cuda(q, k_cache, v_cache, lengths,
                                      return_lse=return_lse)
@@ -126,3 +155,109 @@ def flash_decode_paged(q, k_pool, v_pool, tables, lengths, *,
     kc = gather_kv_blocks(k_pool, tables)
     vc = gather_kv_blocks(v_pool, tables)
     return flash_decode(q, kc, vc, lengths, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded cache (the mesh path)
+# ---------------------------------------------------------------------------
+
+
+def _local(x, mesh, spec):
+    """This rank's shard of ``x`` placed by ``spec``: a DTensor is
+    redistributed there (a no-op when it is placed so already: then the
+    shard is the DTensor's own storage); a plain tensor is the full value
+    and is sliced."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.sharding import placements
+    want = placements(mesh, spec)
+    if local.is_dtensor(x):
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        return x.to_local()
+    return distribute_tensor(x, mesh, want, src_data_rank=None).to_local()
+
+
+def _bspec(dp_axes):
+    dp = tuple(dp_axes) if isinstance(dp_axes, (tuple, list)) else (
+        (dp_axes,) if dp_axes else ())
+    return dp if dp else None          # B=1 cells: batch replicated
+
+
+def flash_decode_sharded(q, k_cache, v_cache, lengths, *, mesh,
+                         seq_axis: str, dp_axes, impl: str = "auto"):
+    """Flash-decode with the cache's sequence axis sharded over
+    ``seq_axis``.
+
+    q: [B,1,H,hd]; k_cache,v_cache: [B,Smax,KV,hd] (Smax sharded over
+    ``seq_axis``, B over ``dp_axes``); lengths: [B].  Each rank runs
+    flash-decode over its chunk of Smax / n keys (the kernel on a CUDA
+    tensor, or it raises; the plain version on the CPU or under
+    ``impl="reference"``) with the chunk's local lengths, and the partials
+    are combined exactly:
+        out = sum_s out_s * w_s / sum_s w_s,   w_s = exp(lse_s - max lse)
+    A chunk that holds no valid key has lse = -inf and weight 0 (never
+    NaN).  Collectives: one all-reduce MAX of [B,H,1] and SUMs of
+    [B,1,H,hd] and [B,H,1] over ``seq_axis``.  Returns a DTensor [B,1,H,hd]
+    (batch over ``dp_axes``, replicated over ``seq_axis``).
+    """
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import placements
+    bs = _bspec(dp_axes)
+    q_spec = (bs, None, None, None)
+    c_spec = (bs, seq_axis, None, None)
+    q_l = _local(q, mesh, q_spec)
+    k_l = _local(k_cache, mesh, c_spec)
+    v_l = _local(v_cache, mesh, c_spec)
+    len_l = _local(lengths, mesh, (bs,))
+    idx = mesh.get_local_rank(seq_axis)
+    chunk = k_l.shape[1]
+    loc_len = (len_l.to(torch.int32) - idx * chunk).clamp(0, chunk)
+    out, lse = flash_decode(q_l, k_l, v_l, loc_len, impl=impl,
+                            return_lse=True)
+    lse = torch.where((loc_len == 0)[:, None, None],
+                      torch.full_like(lse, -math.inf), lse)
+    group = mesh.get_group(seq_axis)
+    lse_max = lse.clone()
+    dist.all_reduce(lse_max, op=dist.ReduceOp.MAX, group=group)
+    wgt = torch.exp(lse - lse_max)                       # [B,H,1]
+    wgt = torch.where(torch.isfinite(wgt), wgt, torch.zeros_like(wgt))
+    num = out.float() * wgt[:, None]                     # [B,1,H,hd]
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(wgt, group=group)
+    res = (num / wgt.clamp_min(1e-30)[:, None]).to(q_l.dtype)
+    return DTensor.from_local(res, mesh, placements(mesh, q_spec),
+                              run_check=False)
+
+
+def write_kv_sharded(cache_k, cache_v, k_new, v_new, start, *, mesh,
+                     seq_axis: str, dp_axes):
+    """Write single-token k / v into caches whose sequence axis is sharded
+    over ``seq_axis``: the write lands in the rank that owns position
+    ``start``; on every other rank it is a no-op.  No collective.
+
+    cache_k/v: DTensors [B,Smax,KV,hd] placed with B over ``dp_axes`` and
+    Smax over ``seq_axis`` (written in place and returned); k_new/v_new:
+    [B,1,KV,hd]; start: [B] global write positions.
+    """
+    bs = _bspec(dp_axes)
+    c_spec = (bs, seq_axis, None, None)
+    from repro_torch.launch.sharding import placements
+    want = placements(mesh, c_spec)
+    for c in (cache_k, cache_v):
+        if not local.is_dtensor(c) or tuple(c.placements) != want:
+            raise ValueError("write_kv_sharded writes in place: the caches "
+                             f"must be DTensors placed as {want}")
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    kn = _local(k_new, mesh, (bs, None, None, None))
+    vn = _local(v_new, mesh, (bs, None, None, None))
+    st = _local(start, mesh, (bs,)).long()
+    chunk = ck.shape[1]
+    loc = st - mesh.get_local_rank(seq_axis) * chunk          # [B]
+    ok = (loc >= 0) & (loc < chunk)
+    b = torch.arange(ck.shape[0], device=ck.device)[ok]
+    ck[b, loc[ok]] = kn[ok, 0].to(ck.dtype)
+    cv[b, loc[ok]] = vn[ok, 0].to(cv.dtype)
+    return cache_k, cache_v

@@ -18,7 +18,7 @@ import struct
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, local, report
 from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -83,7 +83,27 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f"or TMA cannot read the strides of q, k, v or out")
     build.check(err, "flash_attention")
     LAUNCHES += 1
+    report("flash_attention", lambda: work(q, k, causal, window))
     return out
+
+
+def pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits: query i at kv position
+    i + Skv - Sq sees keys (qp - window, qp] (causal) or all."""
+    qp = torch.arange(Sq, dtype=torch.int64) + (Skv - Sq)
+    hi = qp.clamp(max=Skv - 1) if causal else torch.full_like(qp, Skv - 1)
+    lo = (qp - window + 1).clamp(min=0) if window else torch.zeros_like(qp)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def work(q, k, causal: bool, window: int):
+    """(FLOPs, bytes) of one launch: q.k and p.v over the admitted pairs;
+    q, k, v read and out written once."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    es = q.element_size()
+    return (4.0 * B * H * hd * pairs(Sq, Skv, causal, window),
+            es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd))
 
 
 def sm_scale_of(hd: int) -> float:
@@ -141,10 +161,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     q position i sits at kv position i + Skv - Sq.  impl: "auto" (the
     kernel on CUDA, the plain version on CPU) or "reference" (the plain
-    version).
+    version).  DTensors run on each rank's rows (``kernels.local``).
     """
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
+    if local.is_dtensor(q):          # each rank: its rows, every head
+        d = ("dp", None, None, None)
+        return local.run_local(
+            lambda *t: flash_attention(*t, causal=causal, window=window,
+                                       impl=impl), (q, k, v), (d, d, d), d)
     if impl == "auto" and q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, local, report
 from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -63,6 +63,9 @@ def rglru_scan_cuda(a, b, h0):
         build.stream_ptr(a.device))
     build.check(err, "rglru_scan")
     LAUNCHES += 1
+    report("rglru_scan", lambda: (2.0 * B * S * W,
+                                  (2 * a.element_size() + 4) * B * S * W
+                                  + 8 * B * W))
     return hs, hT
 
 
@@ -85,9 +88,14 @@ class RglruScanFn(torch.autograd.Function):
 def rglru_scan(a, b, h0, *, impl: str = "auto"):
     """a,b: [B,S,W]; h0: [B,W] -> (hs [B,S,W] fp32, hT [B,W] fp32).
     impl: "auto" (the kernel on CUDA, the plain version on CPU) or
-    "reference" (the plain version)."""
+    "reference" (the plain version).  DTensors run on each rank's rows and
+    channels (``kernels.local``)."""
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
+    if local.is_dtensor(a):          # each rank: its rows and channels
+        d3, d2 = ("dp", None, "tp"), ("dp", "tp")
+        return local.run_local(lambda *t: rglru_scan(*t, impl=impl),
+                               (a, b, h0), (d3, d3, d2), (d3, d2))
     if impl == "auto" and a.is_cuda:
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
                                         or h0.requires_grad):

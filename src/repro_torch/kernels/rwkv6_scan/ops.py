@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, local, report
 from repro_torch.kernels.autograd import recompute_grads
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -75,6 +75,10 @@ def rwkv6_scan_cuda(r, k, v, w, u, s0):
         build.DTYPE_CODE[r.dtype], B, S, H, hd, build.stream_ptr(r.device))
     build.check(err, "rwkv6_scan")
     LAUNCHES += 1
+    n = B * S * H * hd
+    report("rwkv6_scan", lambda: (
+        5.0 * n * hd, 3 * r.element_size() * n + 8 * n + 4 * H * hd
+        + 8 * B * H * hd * hd))
     return o, sT
 
 
@@ -98,9 +102,16 @@ def rwkv6_scan(r, k, v, w, u, s0, *, impl: str = "auto"):
     """r,k,v,w: [B,S,H,hd]; u: [H,hd]; s0: [B,H,hd,hd] ->
     (o [B,S,H,hd] fp32, sT [B,H,hd,hd] fp32).  impl: "auto" (the kernel
     on CUDA, the plain version on CPU) or "reference" (the plain
-    version)."""
+    version).  DTensors run on each rank's rows and heads
+    (``kernels.local``)."""
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
+    if local.is_dtensor(r):          # each rank: its rows and heads
+        d4 = ("dp", None, "tp", None)
+        ds = ("dp", "tp", None, None)
+        return local.run_local(lambda *t: rwkv6_scan(*t, impl=impl),
+                               (r, k, v, w, u, s0),
+                               (d4, d4, d4, d4, ("tp", None), ds), (d4, ds))
     if impl == "auto" and r.is_cuda:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (r, k, v, w, u, s0)):

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, report
 from repro_torch.kernels.similarity_topk.ref import (l2_normalize,
                                                      similarity_topk_ref)
 
@@ -107,6 +107,8 @@ def similarity_topk_cuda(q: torch.Tensor, c: torch.Tensor, k: int):
             idx.data_ptr(), stream)
     build.check(err, "similarity_topk")
     LAUNCHES += 1
+    report("similarity_topk", lambda: (2.0 * Q * N * D,
+                                       4 * (Q + N) * D + 8 * Q * k))
     return vals, idx
 
 

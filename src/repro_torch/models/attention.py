@@ -21,6 +21,17 @@ window mode on the card; the JAX package's chunked banded
 ``local_attention`` computes the same function), and a decode step is
 K1 over the layer's ring buffer of the last W tokens
 (:func:`ring_decode_attention`), whose valid slots are always a prefix.
+
+On the mesh path (``models/shardctx`` armed, DTensor activations) the
+pins of the JAX package's ``_attn_block`` hold: q, k and v go to the
+attention with their batch over the data axes and replicated over
+``model`` (attention is not head-sharded), and the output comes back
+head-sharded over ``model``.  The kernels run on each rank's rows
+(``kernels.local``).  A single-token decode against a cache whose
+sequence axis is sharded over ``model`` writes into the owning rank and
+runs K1 on each rank's chunk, combined by logsumexp
+(:func:`sharded_cache_decode`, ``kernels/decode_attention``); the ring of
+a sliding-window layer, sharded so, takes the same path.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import shardctx
 
 NEG_INF = -1e30
 
@@ -86,6 +98,10 @@ def _attn_block(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
+    # pin the batch sharding through the GQA head split
+    qg = shardctx.constrain(qg, "dp", None, None, None, None)
+    k = shardctx.constrain(k, "dp", None, None, None)
+    v = shardctx.constrain(v, "dp", None, None, None)
     logits = torch.einsum("bqcgd,bscd->bcgqs", qg.float(),
                           k.float()) / math.sqrt(hd)
     qp = q_pos if q_pos.dim() == 2 else q_pos[None]            # [B?,Sq]
@@ -104,7 +120,16 @@ def _attn_block(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
                              torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bcgqs,bscd->bqcgd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype).reshape(B, Sq, H, hd)
+    out = out.to(q.dtype).reshape(B, Sq, H, hd)
+    return shardctx.constrain(out, "dp", None, "tp", None)
+
+
+def _pinned(q, k, v):
+    """q, k, v with their batch over the data axes and replicated over
+    ``model`` (the JAX package's pins around the GQA head split)."""
+    return (shardctx.constrain(q, "dp", None, None, None),
+            shardctx.constrain(k, "dp", None, None, None),
+            shardctx.constrain(v, "dp", None, None, None))
 
 
 def causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024,
@@ -117,6 +142,10 @@ def causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024,
     """
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
+    if shardctx.is_dtensor(q):          # the kernel (plain on CPU) a rank
+        out = flash_ops.flash_attention(*_pinned(q, k, v), causal=causal,
+                                        window=window, impl=_FLASH_IMPL)
+        return shardctx.constrain(out, "dp", None, "tp", None)
     if q.is_cuda:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window, impl=_FLASH_IMPL)
@@ -139,8 +168,10 @@ def decode_attention(q, k_cache, v_cache, lengths):
     written; lengths: [B], valid tokens *including* the new ones.
     """
     B, T, H, hd = q.shape
-    if T == 1 and (q.is_cuda or _DECODE_IMPL != "dense"):
+    if T == 1 and (q.is_cuda or _DECODE_IMPL != "dense"
+                   or shardctx.is_dtensor(q)):
         impl = "reference" if _DECODE_IMPL == "reference" else "auto"
+        q, k_cache, v_cache = _pinned(q, k_cache, v_cache)
         return dec_ops.flash_decode(q, k_cache, v_cache, lengths, impl=impl)
     Smax = k_cache.shape[1]
     kv_pos = torch.arange(Smax, dtype=torch.int32, device=q.device)[None]
@@ -167,6 +198,16 @@ def ring_decode_attention(q, k_ring, v_ring, pos, window: int):
     if T != 1:
         raise ValueError("ring decode is single-token")
     W = window
+    if shardctx.is_dtensor(q):
+        impl = "reference" if _DECODE_IMPL == "reference" else "auto"
+        lengths = torch.clamp(pos + 1, max=W).to(torch.int32)
+        if seq_sharded_decode_ready(k_ring):
+            mesh, _, tp = shardctx.mesh_info()
+            return dec_ops.flash_decode_sharded(
+                q, k_ring, v_ring, lengths, mesh=mesh, seq_axis=tp,
+                dp_axes=shardctx.dp_for(B), impl=impl)
+        q, k_ring, v_ring = _pinned(q, k_ring, v_ring)
+        return dec_ops.flash_decode(q, k_ring, v_ring, lengths, impl=impl)
     if q.is_cuda or _DECODE_IMPL != "dense":
         impl = "reference" if _DECODE_IMPL == "reference" else "auto"
         lengths = torch.clamp(pos + 1, max=W).to(torch.int32)
@@ -178,10 +219,50 @@ def ring_decode_attention(q, k_ring, v_ring, pos, window: int):
                        window=W, kv_valid=slot_pos >= 0)
 
 
+def seq_sharded_decode_ready(cache_k) -> bool:
+    """True when the shard context is armed and ``cache_k`` [B,S,KV,hd]
+    is a DTensor whose sequence axis is sharded over ``model`` (batch over
+    the data axes where they divide it): the sharded decode path
+    applies.  The path writes the cache in place, so a cache placed
+    otherwise is not resharded for it."""
+    if not shardctx.enabled() or not shardctx.is_dtensor(cache_k):
+        return False
+    from repro_torch.launch.sharding import placements
+    mesh, _, tp = shardctx.mesh_info()
+    if cache_k.shape[1] % shardctx.tp_size():
+        return False
+    dp = shardctx.dp_for(cache_k.shape[0]) or None
+    return tuple(cache_k.placements) == placements(
+        cache_k.device_mesh, (dp, tp, None, None))
+
+
+def sharded_cache_decode(q, cache_k, cache_v, k_new, v_new, lengths,
+                         impl: str = "auto"):
+    """Decode against a sequence-sharded KV cache: shard-local write +
+    flash-decode with the partials combined by logsumexp (see
+    ``kernels/decode_attention``).  Returns (out, cache_k, cache_v)."""
+    mesh, _, tp = shardctx.mesh_info()
+    dp = shardctx.dp_for(q.shape[0])
+    start = lengths - 1
+    ck, cv = dec_ops.write_kv_sharded(cache_k, cache_v, k_new, v_new, start,
+                                      mesh=mesh, seq_axis=tp, dp_axes=dp)
+    if impl == "auto" and _DECODE_IMPL == "reference":
+        impl = "reference"
+    out = dec_ops.flash_decode_sharded(q, ck, cv, lengths, mesh=mesh,
+                                       seq_axis=tp, dp_axes=dp, impl=impl)
+    return out, ck, cv
+
+
 def write_kv_ring(cache_k, cache_v, k_new, v_new, pos, window: int):
     """Write single-token k/v [B,1,KV,hd] at ring slot pos % window, in
-    place, and return the rings."""
+    place, and return the rings (on a ring sharded over ``model``, into
+    the rank that holds the slot)."""
     B = k_new.shape[0]
+    if seq_sharded_decode_ready(cache_k):
+        mesh, _, tp = shardctx.mesh_info()
+        return dec_ops.write_kv_sharded(
+            cache_k, cache_v, k_new, v_new, torch.remainder(pos, window),
+            mesh=mesh, seq_axis=tp, dp_axes=shardctx.dp_for(B))
     slot = torch.remainder(pos.long(), window)
     bidx = torch.arange(B, device=pos.device)
     cache_k[bidx, slot] = k_new[:, 0]
@@ -194,6 +275,10 @@ def fill_ring(ring_k, ring_v, k, v, lengths, window: int):
     j holds the largest valid position congruent to j (mod W), zeros
     where there is none.  Written into the rings [B,W,KV,hd] in place (a
     gather, so padding never races a scatter)."""
+    if shardctx.is_dtensor(k):               # the mesh path: full values
+        k, v = k.full_tensor(), v.full_tensor()
+        if shardctx.is_dtensor(lengths):
+            lengths = lengths.full_tensor()
     B, S = k.shape[:2]
     W = window
     q_last = (lengths.to(torch.int64) - 1)[:, None]                  # [B,1]
@@ -202,8 +287,10 @@ def fill_ring(ring_k, ring_v, k, v, lengths, window: int):
     ok = (src >= 0)[..., None, None]
     srcc = src.clamp(0, S - 1)
     bidx = torch.arange(B, device=k.device)[:, None]
-    ring_k.copy_(torch.where(ok, k[bidx, srcc], torch.zeros_like(ring_k)))
-    ring_v.copy_(torch.where(ok, v[bidx, srcc], torch.zeros_like(ring_v)))
+    zeros = torch.zeros(k.shape[:1] + (W,) + k.shape[2:], dtype=k.dtype,
+                        device=k.device)
+    shardctx.assign(ring_k, torch.where(ok, k[bidx, srcc], zeros))
+    shardctx.assign(ring_v, torch.where(ok, v[bidx, srcc], zeros))
     return ring_k, ring_v
 
 

@@ -23,6 +23,14 @@ one elementwise update, as in the JAX package), and RWKV-6's wkv
 recurrence through ``kernels/rwkv6_scan`` (K5) in every mode.  On the CPU
 they run the kernels' plain versions, which are the JAX package's
 ``lax.scan`` step by step.
+
+On the mesh path (``models/shardctx`` armed, params and caches DTensors
+placed by ``launch/sharding``) the blocks carry the JAX package's mesh
+code: the q / k / v pins of ``_qkv``, q heads zero-padded up to a multiple
+of the ``model`` axis where they do not divide it (``_padded_heads``),
+the sequence-sharded single-token decode, cache writes that land in each
+rank's own slice (``shardctx.assign``), and the expert-parallel mixture
+of experts (:func:`moe_apply`).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.configs import base as cfgs
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import shardctx
 from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, group_norm_heads, linear,
                                        mlp_init, norm_init)
@@ -70,6 +79,7 @@ class Ctx:
     lengths: Optional[Any] = None   # [B] valid tokens incl. current step
     valid: Optional[Any] = None     # [B,S] bool: pad mask for prefill
     cache: Any = None               # this block's cache slice
+    mesh_axes: Any = None           # (mesh, dp_axes, tp_axis) or None
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -96,14 +106,24 @@ def attn_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
     return p
 
 
+def split_heads(y, n: int, hd: int):
+    """A projection y [B, S, n*hd] as [B, S, n, hd].  On the mesh, a
+    projection sharded over ``model`` where n heads don't divide it (the
+    shard would cut a head) is gathered over ``model`` first."""
+    B, S = y.shape[:2]
+    if shardctx.is_dtensor(y) and n % shardctx.tp_size():
+        y = shardctx.constrain(y, "dp", None, None)
+    return y.reshape(B, S, n, hd)
+
+
 def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
-    B, S, _ = x.shape
-    q = linear(x, params["wq"], params.get("bq")).reshape(
-        B, S, cfg.num_heads, cfg.head_dim)
-    k = linear(x, params["wk"], params.get("bk")).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(x, params["wv"], params.get("bv")).reshape(
-        B, S, cfg.num_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    q = split_heads(linear(x, params["wq"], params.get("bq")),
+                    cfg.num_heads, hd)
+    k = split_heads(linear(x, params["wk"], params.get("bk")),
+                    cfg.num_kv_heads, hd)
+    v = split_heads(linear(x, params["wv"], params.get("bv")),
+                    cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         # RMSNorm over each head, after the projection and before RoPE
         q = apply_norm(params["q_norm"], q, cfg.norm_eps)
@@ -111,13 +131,37 @@ def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = shardctx.constrain(q, "dp", None, "tp", None)
+    k = shardctx.constrain(k, "dp", None, None, None)
+    v = shardctx.constrain(v, "dp", None, None, None)
     return q, k, v
+
+
+def _padded_heads(cfg: cfgs.ModelConfig) -> int:
+    """Zero-pad q heads up to a multiple of the ``model`` axis when H
+    doesn't divide it (qwen2-vl: 28 heads on a 16-way axis -> 32).  The
+    extra heads' wo rows are zero, so the output is exact; the padded
+    heads shard over ``model`` where H alone would be replicated."""
+    if not shardctx.enabled():
+        return cfg.num_heads
+    t = shardctx.tp_size()
+    H = cfg.num_heads
+    if H % t == 0:
+        return H
+    Hp = ((H + t - 1) // t) * t
+    if Hp % cfg.num_kv_heads != 0:     # GQA grouping must survive
+        return H
+    return Hp
 
 
 def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
     cfg = ctx.cfg
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg, ctx.positions)
+    Hp = _padded_heads(cfg)
+    if Hp != cfg.num_heads:
+        q = F.pad(q, (0, 0, 0, Hp - cfg.num_heads))
+        q = shardctx.constrain(q, "dp", None, "tp", None)
     new_cache = ctx.cache
     if ctx.mode == "decode":
         if window:
@@ -125,6 +169,11 @@ def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
             ck, cv = attn.write_kv_ring(ctx.cache["k"], ctx.cache["v"], k, v,
                                         pos, window)
             out = attn.ring_decode_attention(q, ck, cv, pos, window)
+        elif S == 1 and attn.seq_sharded_decode_ready(ctx.cache["k"]):
+            # sequence-sharded cache: shard-local write + partial
+            # attention per rank, combined by logsumexp
+            out, ck, cv = attn.sharded_cache_decode(
+                q, ctx.cache["k"], ctx.cache["v"], k, v, ctx.lengths)
         else:
             start = ctx.lengths - S
             ck, cv = attn.write_kv(ctx.cache["k"], ctx.cache["v"], k, v,
@@ -142,8 +191,11 @@ def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
             else:
                 write_prefix(ck, k)
                 write_prefix(cv, v)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return linear(out, params["wo"], params.get("bo")), new_cache
+    out = out.reshape(B, S, Hp * cfg.head_dim)
+    wo = params["wo"]
+    if Hp != cfg.num_heads:                 # zero rows for padded heads
+        wo = F.pad(wo, (0, 0, 0, (Hp - cfg.num_heads) * cfg.head_dim))
+    return linear(out, wo, params.get("bo")), new_cache
 
 
 def write_prefix(cache, x):
@@ -158,6 +210,14 @@ def write_prefix(cache, x):
             "dynamic_update_slice update shape must be smaller than operand "
             f"shape, got update shape {tuple(x.shape)} for operand shape "
             f"{tuple(cache.shape)}.")
+    if shardctx.is_dtensor(cache) or shardctx.is_dtensor(x):
+        # the mesh path: each rank writes its slice of the whole
+        if shardctx.is_dtensor(x):
+            x = x.full_tensor()
+        full = x.new_zeros(tuple(cache.shape))
+        full[:, :S] = x
+        shardctx.assign(cache, full)
+        return
     cache[:, :S] = x
     cache[:, S:].zero_()
 
@@ -174,8 +234,11 @@ def attn_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *,
 # MoE MLP (token-choice top-k with per-expert capacity)
 # ===========================================================================
 #
-# The single-device form of the JAX package's ``moe_apply``; its
-# expert-parallel ``shard_map`` branch comes with the sharding rules.
+# ``moe_apply`` runs the single-device form, or, with the shard context
+# armed and the tokens dividing the data axes and the experts the model
+# axis, the JAX package's expert-parallel ``shard_map`` branch: each rank
+# takes its tokens and its slice of the experts, and the outputs are
+# summed over ``model``.
 
 
 def moe_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
@@ -209,10 +272,10 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(router_w, x2d, m: cfgs.MoEConfig):
-    """x2d [T, D] -> the renormalised top-k gates scattered to [T, E]
-    (fp32), and the load-balance aux loss.  Padding experts are masked to
-    -1e30 before the softmax, so they are never chosen."""
+def _gates(router_w, x2d, m: cfgs.MoEConfig):
+    """x2d [T, D] -> (the renormalised top-k gates scattered to [T, E],
+    the router's probabilities [T, E]), fp32.  Padding experts are masked
+    to -1e30 before the softmax, so they are never chosen."""
     logits = x2d.float() @ router_w                        # [T, E] fp32
     E = m.padded_num_experts
     if E > m.num_experts:
@@ -222,8 +285,13 @@ def _route(router_w, x2d, m: cfgs.MoEConfig):
     probs = torch.softmax(logits, dim=-1)
     topv, topi = _top_k(probs, m.num_experts_per_tok)
     topv = topv / topv.sum(-1, keepdim=True)
-    gates = torch.zeros_like(probs).scatter_(1, topi, topv)
-    # Switch-style load balance aux loss (over the true experts only)
+    return torch.zeros_like(probs).scatter_(1, topi, topv), probs
+
+
+def _route(router_w, x2d, m: cfgs.MoEConfig):
+    """x2d [T, D] -> the gates [T, E] (fp32) and the Switch-style load
+    balance aux loss (over the true experts only)."""
+    gates, probs = _gates(router_w, x2d, m)
     frac_tokens = (gates > 0).float().mean(0)
     frac_probs = probs.mean(0)
     aux = m.num_experts * (frac_tokens * frac_probs).sum()
@@ -267,16 +335,86 @@ def _capacity(m: cfgs.MoEConfig, t_loc: int, mode: str) -> int:
         m.num_experts_per_tok * t_loc * m.capacity_factor / m.num_experts)))
 
 
+def _ep_axes(ctx: Ctx, T: int, E: int):
+    """(mesh, dp axes, tp axis) when the expert-parallel branch applies:
+    the context is armed, the tokens divide the data axes and the
+    experts the model axis (the JAX package's gate); else None."""
+    if ctx.mesh_axes is None:
+        return None
+    from repro_torch.launch import sharding
+    mesh, dp, tp = ctx.mesh_axes
+    dp = dp if isinstance(dp, tuple) else (dp,)
+    if T % sharding._axis_size(mesh, dp) or E % sharding._axis_size(mesh,
+                                                                     tp):
+        return None
+    return mesh, dp, tp
+
+
+def _moe_ep(params, x2d, m: cfgs.MoEConfig, mode: str, axes):
+    """The expert-parallel branch on DTensors: each rank routes its T / dp
+    tokens, keeps the gates of its E / tp experts, runs them with the
+    capacity of its local token count, and the partial outputs are
+    summed over ``model``.  The load-balance loss takes the means over all
+    tokens (sums reduced over the data axes), as the JAX package routes
+    the whole batch before its ``shard_map``.  Returns (y2d, aux), both
+    DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.launch import sharding
+    from repro_torch.launch.sharding import placements
+    mesh, dp, tp = axes
+    names = tuple(mesh.mesh_dim_names)
+    tok_spec = (dp, None)
+    xl = x2d.redistribute(mesh, placements(mesh, tok_spec)).to_local()
+    rw = params["router"]["w"]
+    rw = rw.redistribute(mesh, [Replicate()] * len(names)).to_local()
+    T_loc = xl.shape[0]
+    gates, probs = _gates(rw, xl, m)                        # [T_loc, E]
+    # global means of the Switch loss: per-rank sums, summed over dp
+    sums = torch.stack([(gates > 0).float().sum(0), probs.sum(0)])
+    red = [Partial() if n in dp else Replicate() for n in names]
+    sums = DTensor.from_local(sums, mesh, red, run_check=False).redistribute(
+        mesh, [Replicate()] * len(names))
+    means = sums / (T_loc * sharding._axis_size(mesh, dp))
+    aux = m.num_experts * (means[0] * means[1]).sum() * m.router_aux_loss
+    # this rank's experts: E / tp of them, the whole D
+    e_spec = (tp, None, None)
+    e = {k: w.redistribute(mesh, placements(mesh, e_spec)).to_local()
+         for k, w in params["experts"].items()}
+    E_loc = e["wi"].shape[0]
+    off = mesh.get_local_rank(tp) * E_loc
+    cap = _capacity(m, T_loc, mode)
+    y = _moe_local(xl, gates[:, off:off + E_loc], e["wi"], e["wg"], e["wo"],
+                   cap)
+    out = [Partial() if n == tp else p for n, p in
+           zip(names, placements(mesh, tok_spec))]
+    y2d = DTensor.from_local(y, mesh, out, run_check=False).redistribute(
+        mesh, placements(mesh, tok_spec))
+    return y2d, aux
+
+
 def moe_apply(params, x, ctx: Ctx):
     """x [B, S, D] -> (y [B, S, D], aux loss): routed experts, plus the
     fused shared expert where there is one."""
     m = ctx.cfg.moe
     B, S, D = x.shape
     x2d = x.reshape(B * S, D)
-    gates, aux = _route(params["router"]["w"], x2d, m)
-    cap = _capacity(m, x2d.shape[0], ctx.mode)
-    e = params["experts"]
-    y2d = _moe_local(x2d, gates, e["wi"], e["wg"], e["wo"], cap)
+    axes = _ep_axes(ctx, B * S, m.padded_num_experts)
+    if axes is not None and shardctx.is_dtensor(x2d):
+        y2d, aux = _moe_ep(params, x2d, m, ctx.mode, axes)
+    else:
+        if shardctx.is_dtensor(x2d):
+            # no expert parallelism: every rank routes every token
+            # through every expert on full values
+            x2d = x2d.full_tensor()
+            params = {k: v for k, v in params.items()}
+            params["router"] = {"w": params["router"]["w"].full_tensor()}
+            params["experts"] = {k: w.full_tensor() for k, w in
+                                 params["experts"].items()}
+        gates, aux = _route(params["router"]["w"], x2d, m)
+        cap = _capacity(m, x2d.shape[0], ctx.mode)
+        e = params["experts"]
+        y2d = _moe_local(x2d, gates, e["wi"], e["wg"], e["wo"], cap)
     y = y2d.reshape(B, S, D).to(x.dtype)
     if m.num_shared_experts:
         y = y + apply_mlp(params["shared"], x)
@@ -370,8 +508,8 @@ def rglru_apply(params, x, ctx: Ctx):
         h = a[:, 0] * h0 + b[:, 0]                            # [B,W]
         hs = h[:, None]
         conv = torch.cat([prev, u], dim=1)[:, 1:]
-        cache["h"].copy_(h)
-        cache["conv"].copy_(conv)
+        shardctx.assign(cache["h"], h)
+        shardctx.assign(cache["conv"], conv)
     else:
         hs, hT = rglru_ops.rglru_scan(a, b, h0, impl=_SCAN_IMPL)
         if ctx.mode == "prefill":
@@ -382,10 +520,13 @@ def rglru_apply(params, x, ctx: Ctx):
                    + torch.arange(cw - 1, device=x.device)[None])
             ok = (idx >= 0)[..., None]
             bidx = torch.arange(B, device=x.device)[:, None]
-            hist = u[bidx, idx.clamp(0, S - 1)]
-            cache["h"].copy_(hT)
-            cache["conv"].copy_(torch.where(ok, hist,
-                                            torch.zeros_like(hist)))
+            uf = u.full_tensor() if shardctx.is_dtensor(u) else u
+            if shardctx.is_dtensor(idx):
+                idx, ok = idx.full_tensor(), ok.full_tensor()
+            hist = uf[bidx, idx.clamp(0, S - 1)]
+            shardctx.assign(cache["h"], hT)
+            shardctx.assign(cache["conv"], torch.where(
+                ok, hist, torch.zeros_like(hist)))
     g = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     y = hs.to(x.dtype) * g
     return linear(y, params["out"]), cache
@@ -499,12 +640,16 @@ def rwkv_apply(params, x, ctx: Ctx):
         if ctx.mode == "prefill" and ctx.lengths is not None:
             bidx = torch.arange(B, device=x.device)
             last = (ctx.lengths - 1).clamp(0, S - 1).long()
+            if shardctx.is_dtensor(h1):       # the mesh path: full values
+                h1, h2 = h1.full_tensor(), h2.full_tensor()
+                if shardctx.is_dtensor(last):
+                    last = last.full_tensor()
             st, sc = h1[bidx, last], h2[bidx, last]
         else:
             st, sc = h1[:, -1], h2[:, -1]
-        cache["s"].copy_(sT)
-        cache["shift_t"].copy_(st)
-        cache["shift_c"].copy_(sc)
+        shardctx.assign(cache["s"], sT)
+        shardctx.assign(cache["shift_t"], st)
+        shardctx.assign(cache["shift_c"], sc)
     return out, cache
 
 

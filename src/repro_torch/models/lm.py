@@ -27,6 +27,11 @@ or [B, S, 3] streams for M-RoPE), else from ``_default_positions``.
 The cache passed to prefill / decode is updated in place and returned.
 The training loss is :func:`ce_loss_chunked`, which never holds the
 [B, S, V] logits at once.
+
+With the shard context armed (``models/shardctx``) ``apply`` takes the
+mesh from it for the expert-parallel MoE layers and pins the embedding
+output, the carry between periods and the loss chunk's logits as the JAX
+package does; the params, the batch and the cache are then DTensors.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as cfgs
-from repro_torch.models import blocks
+from repro_torch.models import blocks, shardctx
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        norm_init, softcap)
 
@@ -118,7 +123,7 @@ def _default_positions(cfg, batch, x, mode, lengths):
 
 
 def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
-          remat: bool = True):
+          mesh_axes=None, remat: bool = True):
     """Run the backbone.  Returns a dict with hidden [B,S,D] (train),
     last_hidden [B,D] (prefill) or hidden [B,S,D] (decode), the cache
     (prefill / decode) and ``aux``, the summed load-balance loss of the
@@ -130,7 +135,11 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
     ``jax.checkpoint`` of its period scan; the tail's blocks do not."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mesh_axes is None and shardctx.enabled():
+        # launcher context: explicit expert parallelism for MoE layers
+        mesh_axes = shardctx.mesh_info()
     x = _embed(cfg, params, batch, mode)
+    x = shardctx.constrain(x, "dp", "sp" if mode == "train" else None, None)
     B, S = x.shape[0], x.shape[1]
     lengths = valid = None
     if mode == "prefill":
@@ -143,7 +152,7 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
         lengths = cache["len"] + S                           # S new tokens
     positions = _default_positions(cfg, batch, x, mode, lengths)
     ctx = blocks.Ctx(cfg=cfg, mode=mode, positions=positions, lengths=lengths,
-                     valid=valid)
+                     valid=valid, mesh_axes=mesh_axes)
     n = len(cfg.period)
     n_body = cfg.num_periods * n
 
@@ -162,6 +171,10 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
                                          params["layers"][layer], x,
                                          ctx.replace(cache=c))
             aux = aux + a
+            if layer < n_body and layer % n == n - 1:
+                # pin the period-to-period carry: batch on dp; with
+                # sequence parallelism on, the sequence on ``model``
+                x = shardctx.constrain(x, "dp", "sp", None)
         return x, aux
 
     if mode == "train" and remat:
@@ -217,11 +230,13 @@ def logits_of(cfg, params, hidden):
 def _ce_chunk(cfg, w, hc, lc, mc):
     """Summed masked NLL and mask of one chunk: hc [B,c,D], lc, mc [B,c]."""
     logits = hc.float() @ w.float()
+    # vocab-sharded logits; never replicate the [B, chunk, V] tensor
+    logits = shardctx.constrain(logits, "dp", None, "tp")
     if cfg.logit_softcap:
         logits = softcap(logits, cfg.logit_softcap)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-    nll = (logz - tgt) * mc
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    tgt = torch.gather(logits, -1, lc.long()[..., None])
+    nll = (logz - tgt)[..., 0] * mc
     return nll.sum(), mc.sum()
 
 

@@ -21,7 +21,9 @@ encoder's self-attention and every cross-attention through the flash
 attention kernel (K2) with ``causal=False``, a decode step's included
 (one query over the encoder's keys); the decoder's self-attention through
 K2 in a full-sequence pass and the flash-decode kernel (K1) in a decode
-step.
+step.  With the shard context armed and the cache's sequence sharded
+over ``model``, a decode step's self-attention writes into the owning
+rank and runs K1 on each rank's chunk (``attention.sharded_cache_decode``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as cfgs
 from repro_torch.models import attention as attn
-from repro_torch.models import blocks
+from repro_torch.models import blocks, shardctx
 from repro_torch.models.common import (apply_mlp, apply_norm, dtype_of,
                                        embed_init, linear, mlp_init,
                                        norm_init)
@@ -83,9 +85,8 @@ def init_cache(cfg: cfgs.ModelConfig, batch: int, smax: int, dtype=None,
 def _heads(x, p, name, n, cfg):
     """The projection ``w{name}`` (+ ``b{name}``) of x [B,S,D] as
     [B, S, n, hd]."""
-    B, S, _ = x.shape
-    return linear(x, p[f"w{name}"], p.get(f"b{name}")).reshape(
-        B, S, n, cfg.head_dim)
+    return blocks.split_heads(linear(x, p[f"w{name}"], p.get(f"b{name}")),
+                              n, cfg.head_dim)
 
 
 def _self_qkv(p, x, cfg):
@@ -147,9 +148,13 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
         q, k, v = _self_qkv(lp["attn"],
                             apply_norm(lp["ln1"], x, cfg.norm_eps), cfg)
         if mode == "decode":
-            ck, cv = attn.write_kv(cache["k"][layer], cache["v"][layer], k,
-                                   v, lengths - S)
-            o = attn.decode_attention(q, ck, cv, lengths)
+            if S == 1 and attn.seq_sharded_decode_ready(cache["k"][layer]):
+                o, ck, cv = attn.sharded_cache_decode(
+                    q, cache["k"][layer], cache["v"][layer], k, v, lengths)
+            else:
+                ck, cv = attn.write_kv(cache["k"][layer], cache["v"][layer],
+                                       k, v, lengths - S)
+                o = attn.decode_attention(q, ck, cv, lengths)
         else:
             o = attn.causal_attention(q, k, v)
             if mode == "prefill":
@@ -166,8 +171,8 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
             xk = _heads(enc_out, xp, "k", cfg.num_kv_heads, cfg)
             xv = _heads(enc_out, xp, "v", cfg.num_kv_heads, cfg)
             if mode == "prefill":
-                cache["xk"][layer].copy_(xk)
-                cache["xv"][layer].copy_(xv)
+                shardctx.assign(cache["xk"][layer], xk)
+                shardctx.assign(cache["xv"][layer], xv)
         x = x + _out(xp, attn.causal_attention(qx, xk, xv, causal=False))
         # mlp
         x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg.norm_eps))

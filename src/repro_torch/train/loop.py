@@ -12,6 +12,13 @@ counterpart of ``repro.train.loop``.
 
 A step's time ends when its loss reaches the host (``.item()``), which
 waits for the card as JAX's ``block_until_ready`` does.
+
+Given a ``mesh`` (``launch/mesh.py``), the trainer places the state by
+``launch/sharding.state_specs`` and each batch by ``batch_specs`` and runs
+each step with the shard context armed; every rank draws the same fresh
+state from the seed.  A checkpoint is gathered to full tensors on every
+rank and written by rank 0; a restore reads it on every rank and places
+it again.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import bridge
-from repro_torch.models import model_zoo
+from repro_torch.launch import sharding
+from repro_torch.models import model_zoo, shardctx
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import TokenPipeline
 from repro_torch.train.optim import AdamWConfig
@@ -48,7 +56,7 @@ class FailureInjector:
 @dataclasses.dataclass
 class LoopConfig:
     total_steps: int = 20
-    checkpoint_every: int = 5
+    checkpoint_every: int = 5       # 0: write no checkpoint
     straggler_factor: float = 3.0
     log_every: int = 5
 
@@ -59,7 +67,7 @@ class Trainer:
                  loop: Optional[LoopConfig] = None,
                  opt: Optional[AdamWConfig] = None,
                  injector: Optional[FailureInjector] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
         self.model = model
         self.pipeline = pipeline
         self.ckpt = ckpt
@@ -68,6 +76,7 @@ class Trainer:
         self.injector = injector
         self.seed = seed
         self.device = torch.device(device)
+        self.mesh = mesh
         self.step_fn = make_train_step(model, self.opt_cfg)
         self.history: List[Dict[str, float]] = []
         self.straggler_steps = 0
@@ -76,6 +85,30 @@ class Trainer:
     # ------------------------------------------------------------------
     def _fresh_state(self):
         return init_state(self.model, self.seed, self.device).tree()
+
+    def _place(self, tree, specs):
+        return tree if self.mesh is None else sharding.distribute(
+            self.mesh, tree, specs)
+
+    def _step(self, state, batch):
+        if self.mesh is None:
+            return self.step_fn(state, batch)
+        with shardctx.armed(self.mesh):
+            return self.step_fn(state, batch)
+
+    def _save(self, step: int, state) -> None:
+        """Write the state in the JAX layout: on a mesh, gathered to full
+        tensors on every rank (a collective) and written by rank 0."""
+        cfg = self.model.cfg
+        if self.mesh is None:
+            self.ckpt.save(step, bridge.state_to_jax(cfg, state))
+            return
+        import torch.distributed as dist
+        full = _full_tree(state)
+        if dist.get_rank() == 0:
+            self.ckpt.save(step, bridge.state_to_jax(cfg, full))
+        del full
+        dist.barrier()
 
     def run(self) -> Dict[str, Any]:
         cfg = self.model.cfg
@@ -87,15 +120,21 @@ class Trainer:
             del state
             state = bridge.state_from_jax(cfg, tree, self.device)
             self.resumed_from = start
+        if self.mesh is not None:
+            state = self._place(state, sharding.state_specs(
+                self.mesh, state, cfg=cfg))
         ewma = None
         for step in range(start, self.loop_cfg.total_steps):
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in self.pipeline.batch_at(step).items()}
+            if self.mesh is not None:
+                batch = self._place(batch, sharding.batch_specs(self.mesh,
+                                                                batch))
             t0 = time.perf_counter()
             if self.injector is not None:
                 self.injector.maybe_fail(step)
-            state, metrics = self.step_fn(state, batch)
-            loss = metrics["loss"].item()
+            state, metrics = self._step(state, batch)
+            loss = _item(metrics["loss"])
             dt = time.perf_counter() - t0
             if ewma is None:
                 ewma = dt
@@ -103,15 +142,32 @@ class Trainer:
                 self.straggler_steps += 1
             ewma = 0.9 * (ewma or dt) + 0.1 * dt
             self.history.append({"step": step + 1, "loss": loss,
-                                 "grad_norm": metrics["grad_norm"].item(),
+                                 "grad_norm": _item(metrics["grad_norm"]),
                                  "seconds": dt})
             done = step + 1
-            if (done % self.loop_cfg.checkpoint_every == 0
-                    or done == self.loop_cfg.total_steps):
-                self.ckpt.save(done, bridge.state_to_jax(cfg, state))
+            every = self.loop_cfg.checkpoint_every
+            if every > 0 and (done % every == 0
+                              or done == self.loop_cfg.total_steps):
+                self._save(done, state)
         return {"state": state, "history": self.history,
                 "straggler_steps": self.straggler_steps,
                 "resumed_from": self.resumed_from}
+
+
+def _item(x) -> float:
+    """A scalar (a DTensor's full value on the mesh) as a float."""
+    if shardctx.is_dtensor(x):
+        x = x.full_tensor()
+    return x.item()
+
+
+def _full_tree(tree):
+    """The tree with every DTensor gathered to its full tensor."""
+    if isinstance(tree, dict):
+        return {k: _full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_full_tree(v) for v in tree]
+    return tree.full_tensor() if shardctx.is_dtensor(tree) else tree
 
 
 def run_with_restarts(make_trainer: Callable[[], Trainer],

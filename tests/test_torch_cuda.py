@@ -87,6 +87,49 @@ def test_decode_kernel(cuda, dtype, hd, G):
     assert torch.equal(again, out)          # no atomics: bitwise repeatable
 
 
+def _combine_chunks(q, kc, vc, lengths, n, impl):
+    """flash-decode over n sequence chunks, each with its local lengths
+    and lse, combined by logsumexp as ``flash_decode_sharded`` combines
+    its ranks' partials (empty chunks weigh 0)."""
+    chunk = kc.shape[1] // n
+    outs, lses = [], []
+    for c in range(n):
+        loc = (lengths - c * chunk).clamp(0, chunk).to(torch.int32)
+        o, lse = dec_ops.flash_decode(q, kc[:, c * chunk:(c + 1) * chunk],
+                                      vc[:, c * chunk:(c + 1) * chunk], loc,
+                                      impl=impl, return_lse=True)
+        lses.append(torch.where((loc == 0)[:, None, None],
+                                torch.full_like(lse, -float("inf")), lse))
+        outs.append(o.float())
+    m = torch.stack(lses).amax(0)
+    w = [torch.nan_to_num(torch.exp(x - m), nan=0.0) for x in lses]
+    num = sum(o * wi[:, None] for o, wi in zip(outs, w))
+    return (num / sum(w).clamp_min(1e-30)[:, None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_decode_kernel_chunk_partials_combine(cuda, dtype, n):
+    """K1's lse partials over 2 and 4 sequence chunks (the sequence-
+    sharded decode's per-rank work), combined, equal one launch over the
+    whole cache and the plain version; rows 0-2 leave chunks empty."""
+    B, Smax, KV, H, hd = 4, 512, 2, 16, 128
+    q, kc, vc = _randn(21, [(B, 1, H, hd), (B, Smax, KV, hd),
+                            (B, Smax, KV, hd)], dtype, cuda)
+    lengths = torch.tensor([1, 100, 300, 512], dtype=torch.int32,
+                           device=cuda)
+    before = dec_ops.LAUNCHES
+    got = _combine_chunks(q, kc, vc, lengths, n, "auto")
+    assert dec_ops.LAUNCHES - before == n
+    whole = dec_ops.flash_decode(q, kc, vc, lengths)
+    plain = _combine_chunks(q, kc, vc, lengths, n, "reference")
+    ref = dec_ops.flash_decode(q, kc, vc, lengths, impl="reference")
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), whole.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    torch.testing.assert_close(plain.float(), ref.float(), **TOL[dtype])
+
+
 def test_decode_kernel_reads_strided_cache(cuda):
     """A per-layer view of a stacked [P,B,Smax,KV,hd] cache and a [B,1,H,hd]
     slice of a wider q are read through their strides."""
