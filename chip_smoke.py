@@ -248,27 +248,54 @@ GRAD_STEPS = 2
 # gloo ranks on the one card (weights TP-sharded, cache sequence-
 # sharded).  Both are fed the unarmed one-rank path's greedy tokens; (a)
 # is held to that path's logits and (b) to (a)'s: each row's relative L2
-# within MESH_LOGITS_REL (the served proxy-8b's decode gate), and the
-# greedy token equal except where the reference's top-1 minus top-2 logit
-# is under MESH_TOKEN_MARGIN
+# within MESH_LOGITS_REL (the served proxy-8b's decode gate) for (a) and
+# MESH_TP_LOGITS_REL for (b), and the greedy token equal except where the
+# reference's top-1 minus top-2 logit is under MESH_TOKEN_MARGIN.  (b)
+# read 0.04959 in every run, all of it bf16 rounding of the row-parallel
+# sums: tools/mesh_probe.py reads the same with each chunked attention
+# replaced by K1 over the whole cache, and the fp32 run below reads
+# 8.8e-6; so (b)'s bf16 gate is twice that reading, and the fp32 run's
+# MESH_FP32_REL is the one that catches a fault
 MESH_B = 4
 MESH_SLOTS = 32768
 MESH_LENGTHS = (1000, 9000, 20000, 32000)
 MESH_STEPS = 4
 MESH_LOGITS_REL = 0.05
+MESH_TP_LOGITS_REL = 0.1
 MESH_TOKEN_MARGIN = 0.1
+# (b) again with the weights and the cache in fp32 (K1's fp32 path) and
+# MESH_FP32_LAYERS of the 32 layers, held to the unarmed one-rank path in
+# fp32: bf16's rounding of the row-parallel sums is gone there, so a
+# fault in the tensor-parallel sums or the chunks' logsumexp combine
+# worth 1e-4 of the logits fails.  At full depth two fp32 ranks hold 38
+# GB each, which with the rest of this script's process does not fit on
+# the card; tools/mesh_probe.py runs them at full depth alone
+MESH_FP32_REL = 1e-4
+MESH_FP32_LAYERS = 16
 # (b) qwen2-moe-a2.7b at full width, expert-parallel over model=2 (64
 # padded experts, 32 a rank), one train-mode pass of MESH_MOE_B x
 # MESH_MOE_S tokens, held to the one-rank pass: every position's logits
 # within the zoo's SERVE_TOL (relative L2), or the pass's first router
-# flips within ROUTER_MARGIN_TOL of the one-rank decision
+# flips within ROUTER_MARGIN_TOL of the one-rank decision.  And each MoE
+# layer of the expert-parallel pass is held to the one-rank MoE on the
+# same input (the same routing): the layer's output within
+# MESH_MOE_LAYER_REL (relative L2 over all tokens; bf16 rounding of the
+# two ranks' partial sums), the aux loss within MESH_MOE_AUX_REL
 MESH_MOE_B, MESH_MOE_S = 4, 64
-# (b) one launch/train.py --model-parallel 2 --backend gloo step of
-# proxy-8b at TRAIN_LAYERS layers against the one-rank step: the losses
-# within MESH_TRAIN_LOSS_REL of each other (bf16 rounding of the row-
-# parallel sums); no checkpoint (--ckpt-every 0: the training phase's
-# two already take the card's disk budget)
+MESH_MOE_LAYER_REL = 1e-2
+MESH_MOE_AUX_REL = 1e-5
+# (b) MESH_TRAIN_STEPS launch/train.py --model-parallel 2 --backend gloo
+# steps of proxy-8b at TRAIN_LAYERS layers against the one-rank run: the
+# first step's loss within MESH_TRAIN_LOSS_REL and its gradient norm
+# within MESH_TRAIN_GRAD_REL of each other (bf16 rounding of the row-
+# parallel sums), and the second step's fall in loss (what the first
+# update did) within MESH_TRAIN_DROP_REL of the one-rank fall; no
+# checkpoint (--ckpt-every 0: the training phase's two already take the
+# card's disk budget)
+MESH_TRAIN_STEPS = 2
 MESH_TRAIN_LOSS_REL = 5e-3
+MESH_TRAIN_GRAD_REL = 1e-2
+MESH_TRAIN_DROP_REL = 2e-2
 # the mesh phase's processes must end within this many seconds
 MESH_RANK_TIMEOUT = 600
 
@@ -3439,11 +3466,6 @@ def main() -> int:
 
     # 1-2. build, then hold each kernel against its plain version
     build_kernels(dec_ops, flash_ops, topk_ops, rglru_ops, rwkv_ops)
-    if "--only-mesh" in sys.argv[1:]:     # a development run of one phase
-        rows = mesh_path(torch, {"decode_attention": 0.0})
-        print(card)
-        print(json.dumps({"kernels": rows}))
-        return 0
     errs = check_kernels(torch, dec_ops, flash_ops, dev)
     errs["similarity_topk"] = check_topk(torch, topk_ops, dev)
     check_scans(torch, rglru_ops, rwkv_ops, dev, errs)
@@ -3688,36 +3710,87 @@ def mesh_decode(torch, cell, params, cache, tokens, dec_ops):
     return torch.stack(logits), ms, dec_ops.LAUNCHES, len(calls)
 
 
-def hold_mesh_logits(torch, what, got, ref):
-    """Each row's relative L2 within MESH_LOGITS_REL of the one-rank
-    path's, and its greedy token equal except within MESH_TOKEN_MARGIN of
-    a tie.  Returns the largest relative L2."""
+def hold_mesh_logits(torch, what, got, ref, tol):
+    """Each row's relative L2 within ``tol`` of the reference's, and its
+    greedy token equal except within MESH_TOKEN_MARGIN of a tie.  Returns
+    the largest relative L2."""
     rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
     top2 = ref.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     differ = got.argmax(-1) != ref.argmax(-1)
     close = differ & (margin < MESH_TOKEN_MARGIN)
-    print(f"mesh {what}: max row rel. L2 {rel:.4g} (tol {MESH_LOGITS_REL}),"
+    print(f"mesh {what}: max row rel. L2 {rel:.4g} (tol {tol}),"
           f" greedy tokens differing {int(differ.sum())} of "
           f"{differ.numel()} ({int(close.sum())} within "
           f"{MESH_TOKEN_MARGIN} of a tie)")
-    if not rel <= MESH_LOGITS_REL:
-        fail(f"mesh {what}: logits rel. L2 {rel} > {MESH_LOGITS_REL}")
+    if not rel <= tol:
+        fail(f"mesh {what}: logits rel. L2 {rel} > {tol}")
     if bool((differ & ~close).any()):
         fail(f"mesh {what}: greedy tokens differ away from a tie")
     return rel
 
 
-def mesh_one_card(torch, dec_ops, tmp):
-    """(a) proxy-8b's decode cell on a 1x1 mesh over NCCL, armed, against
-    the unarmed path on the same weights and cache.  Writes the tokens
-    and (a)'s logits for (b) into ``tmp``; returns K1's timing at the
-    sharded chunk shape and the phase's numbers."""
-    import torch.distributed as dist
+def mesh_configs():
+    """proxy-8b at full width as served (bf16), and in fp32 at
+    MESH_FP32_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import base as cfgs
+    cfg = cfgs.get_config("proxy-8b")
+    return {"bf16": cfg, "fp32": dataclasses.replace(
+        cfg, dtype="float32", num_layers=MESH_FP32_LAYERS)}
+
+
+def mesh_unarmed(torch, cfg, mesh, dev):
+    """proxy-8b's decode cell on the 1x1 ``mesh`` with its seeded cache,
+    and MESH_STEPS greedy steps of the unarmed one-rank path on the same
+    storage: (params, cell, cache, tokens [STEPS, B, 1], logits
+    [STEPS, B, V] fp32 on the host, step ms)."""
     from repro_torch.configs import base as cfgs
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model_zoo
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    shape = cfgs.ShapeSpec("decode_32k_b4", MESH_SLOTS, MESH_B, "decode")
+    cell = steps.build_cell(cfg, shape, mesh)
+    cache = cell.zeros_cache(dev)
+    fill_mesh_cache(torch, cache, 0)
+    print(f"mesh (a): proxy-8b {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} {cfg.dtype}, cache {MESH_B} x {MESH_SLOTS} slots "
+          f"({2 * cache['periods']['b0']['k'].to_local().nbytes / 1e9:.1f}"
+          f" GB), lengths {list(MESH_LENGTHS)}")
+    plain = {"periods": {"b0": {n: cache["periods"]["b0"][n].to_local()
+                                for n in ("k", "v")}},
+             "len": torch.tensor(MESH_LENGTHS, dtype=torch.int32, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tok = torch.randint(3, cfg.vocab_size, (MESH_B, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    toks, ref, ms = [], [], []
+    with torch.no_grad():
+        for _ in range(MESH_STEPS):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.apply(params, {"tokens": tok}, mode="decode",
+                              cache=plain)
+            lg = model.logits_of(params, out["hidden"][:, 0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ref.append(lg.float().cpu())
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    cache["len"].to_local().copy_(torch.tensor(MESH_LENGTHS,
+                                               dtype=torch.int32))
+    return params, cell, cache, torch.stack(toks), torch.stack(ref), ms
+
+
+def mesh_one_card(torch, dec_ops, tmp):
+    """(a) proxy-8b's decode cell on a 1x1 mesh over NCCL, armed, against
+    the unarmed path on the same weights and cache; then the unarmed path
+    in fp32.  Writes the tokens and the logits that (b) is held to into
+    ``tmp``/mesh_<bf16|fp32>.pt: (a)'s armed logits, the fp32 unarmed
+    ones.  Returns K1's timing at the sharded chunk shape and the phase's
+    numbers."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.reset_peak_memory_stats()
     store = dist.FileStore(str(Path(tmp) / "nccl_store"), 1)
@@ -3725,44 +3798,11 @@ def mesh_one_card(torch, dec_ops, tmp):
                             device_id=dev)
     try:
         mesh = make_host_mesh(model=1, device_type="cuda")
-        cfg = cfgs.get_config("proxy-8b")
-        model = model_zoo.build(cfg)
-        params = model.init_params(
-            torch.Generator(device=dev).manual_seed(SEED))
-        shape = cfgs.ShapeSpec("decode_32k_b4", MESH_SLOTS, MESH_B, "decode")
-        cell = steps.build_cell(cfg, shape, mesh)
-        cache = cell.zeros_cache(dev)
-        fill_mesh_cache(torch, cache, 0)
-        print(f"mesh (a): proxy-8b {cfg.num_layers} layers d_model "
-              f"{cfg.d_model}, cache {MESH_B} x {MESH_SLOTS} slots "
-              f"({2 * cache['periods']['b0']['k'].to_local().nbytes / 1e9:.1f}"
-              f" GB), lengths {list(MESH_LENGTHS)}")
-        # the unarmed one-rank path on the same storage: greedy tokens
-        plain = {"periods": {"b0": {n: cache["periods"]["b0"][n].to_local()
-                                    for n in ("k", "v")}},
-                 "len": torch.tensor(MESH_LENGTHS, dtype=torch.int32,
-                                     device=dev)}
-        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-        tok = torch.randint(3, cfg.vocab_size, (MESH_B, 1), generator=gen,
-                            device=dev, dtype=torch.int32)
-        toks, ref, plain_ms = [], [], []
-        with torch.no_grad():
-            for _ in range(MESH_STEPS):
-                toks.append(tok)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = model.apply(params, {"tokens": tok}, mode="decode",
-                                  cache=plain)
-                lg = model.logits_of(params, out["hidden"][:, 0])
-                torch.cuda.synchronize()
-                plain_ms.append((time.perf_counter() - t0) * 1e3)
-                ref.append(lg.float().cpu())
-                tok = lg.argmax(-1, keepdim=True).to(torch.int32)
-        ref = torch.stack(ref)
-        tokens = torch.stack(toks)
+        conf = mesh_configs()
+        cfg = conf["bf16"]
+        params, cell, cache, tokens, ref, plain_ms = mesh_unarmed(
+            torch, cfg, mesh, dev)
         # armed: the decode cell on the placed weights and cache
-        cache["len"].to_local().copy_(torch.tensor(MESH_LENGTHS,
-                                                   dtype=torch.int32))
         params, = cell.place(params)
         got, ms, k1, sharded = mesh_decode(torch, cell, params, cache,
                                            tokens, dec_ops)
@@ -3773,30 +3813,45 @@ def mesh_one_card(torch, dec_ops, tmp):
         if k1 != cfg.num_layers * MESH_STEPS or sharded != k1:
             fail("mesh (a): K1 did not run once a layer a step through "
                  "flash_decode_sharded")
-        rel = hold_mesh_logits(torch, "(a) 1x1 NCCL vs unarmed", got, ref)
+        rel = hold_mesh_logits(torch, "(a) 1x1 NCCL vs unarmed", got, ref,
+                               MESH_LOGITS_REL)
         torch.save({"tokens": tokens.cpu(), "logits": got},
-                   str(Path(tmp) / "mesh_a.pt"))
+                   str(Path(tmp) / "mesh_bf16.pt"))
         # K1 at the sharded chunk shape: half the cache, lse on, the
         # chunk's local lengths (rank 0's on two ranks)
         half = MESH_SLOTS // 2
         kc = cache["periods"]["b0"]["k"].to_local()[0, :, :half]
         vc = cache["periods"]["b0"]["v"].to_local()[0, :, :half]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
         q = torch.randn((MESH_B, 1, cfg.num_heads, cfg.head_dim),
                         generator=gen, device=dev).to(kc.dtype)
         loc = torch.tensor(MESH_LENGTHS, dtype=torch.int32,
                            device=dev).clamp(0, half)
         t = time_decode(torch, dec_ops, q, kc, vc, loc, lse=True)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params, cell, cache, kc, vc
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the fp32 reference of (b)'s fp32 run
+        torch.cuda.reset_peak_memory_stats()
+        params, cell, cache, tokens, ref, ms32 = mesh_unarmed(
+            torch, conf["fp32"], mesh, dev)
+        torch.save({"tokens": tokens.cpu(), "logits": ref},
+                   str(Path(tmp) / "mesh_fp32.pt"))
+        print(f"mesh (a): fp32 unarmed decode step median "
+              f"{statistics.median(ms32):.3f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del params, cell, cache
         return {"k1_launches": k1, "rel": rel, "step_ms": ms,
-                "plain_ms": plain_ms, "chunk": t,
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                "plain_ms": plain_ms, "chunk": t, "peak_gb": peak}
     finally:
         dist.destroy_process_group()
 
 
 def mesh_rank(rank, tmp, n_ranks):
     """One rank of (b): two gloo ranks on the one card, proxy-8b's decode
-    cell on (data=1, model=2), then qwen2-moe-a2.7b expert-parallel.
-    Writes its results to ``tmp``/rank<r>.pt."""
+    cell on (data=1, model=2) in bf16 and in fp32, then qwen2-moe-a2.7b
+    expert-parallel.  Writes its results to ``tmp``/rank<r>.pt."""
     import faulthandler
     import traceback
     import torch
@@ -3805,6 +3860,7 @@ def mesh_rank(rank, tmp, n_ranks):
     sys.path.insert(0, str(ROOT / "src"))
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     store = dist.FileStore(str(Path(tmp) / "gloo_store"), n_ranks)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=n_ranks)
@@ -3812,9 +3868,11 @@ def mesh_rank(rank, tmp, n_ranks):
     try:
         from repro_torch.launch.mesh import make_host_mesh
         mesh = make_host_mesh(model=n_ranks, device_type="cuda")
-        res["proxy"] = mesh_rank_proxy(torch, mesh, rank, tmp)
-        gc.collect()
-        torch.cuda.empty_cache()
+        for tag, cfg in mesh_configs().items():
+            res[tag] = mesh_rank_proxy(torch, mesh, rank, n_ranks, tmp, cfg,
+                                       tag)
+            gc.collect()
+            torch.cuda.empty_cache()
         res["moe"] = mesh_rank_moe(torch, mesh, rank)
     except BaseException:
         res["error"] = traceback.format_exc()
@@ -3822,7 +3880,12 @@ def mesh_rank(rank, tmp, n_ranks):
     dist.destroy_process_group()
 
 
-def mesh_rank_proxy(torch, mesh, rank, tmp):
+def mesh_rank_proxy(torch, mesh, rank, n_ranks, tmp, cfg, tag):
+    """This rank's part of proxy-8b's decode cell, fed the tokens of
+    ``tmp``/mesh_<tag>.pt.  The ranks draw the full weights one at a time
+    (each keeps its slice), so that two full fp32 copies never share the
+    card."""
+    import torch.distributed as dist
     from repro_torch.configs import base as cfgs
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.launch import steps
@@ -3830,18 +3893,23 @@ def mesh_rank_proxy(torch, mesh, rank, tmp):
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = cfgs.get_config("proxy-8b")
     model = model_zoo.build(cfg)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
     shape = cfgs.ShapeSpec("decode_32k_b4", MESH_SLOTS, MESH_B, "decode")
     cell = steps.build_cell(cfg, shape, mesh)
-    params, = cell.place(params)
+    params = None
+    for r in range(n_ranks):
+        if r == rank:
+            params, = cell.place(model.init_params(
+                torch.Generator(device=dev).manual_seed(SEED)))
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
     w_gb = sum(t.to_local().nbytes for t in _leaves(params)) / 1e9
     cache = cell.zeros_cache(dev)
     fill_mesh_cache(torch, cache, rank)
     c_gb = sum(t.to_local().nbytes for t in _leaves(cache)) / 1e9
     built = time.perf_counter() - t0
-    ref = torch.load(str(Path(tmp) / "mesh_a.pt"))
+    ref = torch.load(str(Path(tmp) / f"mesh_{tag}.pt"))
     got, ms, k1, sharded = mesh_decode(torch, cell, params, cache,
                                        ref["tokens"].to(dev), dec_ops)
     out = {"logits": got, "step_ms": ms, "k1": k1, "sharded": sharded,
@@ -3849,6 +3917,15 @@ def mesh_rank_proxy(torch, mesh, rank, tmp):
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params, cache
     return out
+
+
+def full_tree(tree):
+    """A tree of DTensors as full tensors (a collective on every rank)."""
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [full_tree(v) for v in tree]
+    return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
 
 
 def mesh_rank_moe(torch, mesh, rank):
@@ -3879,16 +3956,23 @@ def mesh_rank_moe(torch, mesh, rank):
     experts_local = params["layers"][0]["moe"]["experts"]["wi"].to_local()
     batch = sharding.distribute(mesh, {"tokens": tokens},
                                 sharding.batch_specs(mesh, {"tokens": tokens}))
-    ep_recs = []
-
-    def full_routing(args, kw, out):
-        p, x, ctx = args
-        if ctx.mode == "train":
-            full = {"router": {"w": p["router"]["w"].full_tensor()}}
-            ep_recs.append(routing(full, x.full_tensor(), ctx))
-    ep_calls = []
+    ep_recs, seen = [], []
     from repro_torch.models import blocks
-    with Spy(blocks, "moe_apply", full_routing), \
+
+    def per_layer(args, kw, out):
+        # each MoE layer: its routing on full values, and its input and
+        # expert-parallel output for the one-rank MoE below
+        p, x, ctx = args
+        if ctx.mode != "train":
+            return
+        full = {"router": {"w": p["router"]["w"].full_tensor()}}
+        xf = x.full_tensor()
+        ep_recs.append(routing(full, xf, ctx))
+        y, aux = out
+        aux = aux.full_tensor() if hasattr(aux, "full_tensor") else aux
+        seen.append((xf, y.full_tensor(), float(aux), ctx))
+    ep_calls = []
+    with Spy(blocks, "moe_apply", per_layer), \
             Spy(blocks, "_moe_ep", lambda a, k, o: ep_calls.append(1)), \
             shardctx.armed(mesh), torch.no_grad():
         torch.cuda.synchronize()
@@ -3901,6 +3985,7 @@ def mesh_rank_moe(torch, mesh, rank):
            "ep_layers": len(ep_calls), "ep_s": ep_s,
            "seconds": time.perf_counter() - t0,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, o, experts_local
     if rank == 0:
         rel = ((got - one).norm(dim=-1) / one.norm(dim=-1))     # [B, S]
         flips = expert_flips(ep_recs, one_recs, cfg.num_layers)
@@ -3909,7 +3994,23 @@ def mesh_rank_moe(torch, mesh, rank):
                    first=fmt_flips(first), explained=explained(first),
                    rows_over=int((rel > SERVE_TOL["qwen2-moe-a2.7b"][
                        "decode_logits_rel"]).sum()))
-    del params
+        # each layer's one-rank MoE on the expert-parallel pass's input
+        # (the same routing), on the full weights drawn again from the seed
+        # once the sharded ones are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        layers = []
+        with torch.no_grad():
+            for i, (xf, yf, aux, ctx) in enumerate(seen):
+                y1, aux1 = blocks.moe_apply(params["layers"][i]["moe"], xf,
+                                            ctx)
+                y1 = y1.float()
+                layers.append((float((yf.float() - y1).norm() / y1.norm()),
+                               abs(aux - float(aux1)) / abs(float(aux1))))
+        res["layers"] = layers
+        del params
     return res
 
 
@@ -3931,17 +4032,17 @@ def run_ranks(fn, args, n):
 
 
 def mesh_train(torch):
-    """(b) one launch/train.py step of proxy-8b at TRAIN_LAYERS layers on
-    one rank, then with --model-parallel 2 --backend gloo (the launcher
-    starts its two ranks); and --backend nccl with two ranks on one card
-    must refuse."""
+    """(b) MESH_TRAIN_STEPS launch/train.py steps of proxy-8b at
+    TRAIN_LAYERS layers on one rank, then with --model-parallel 2
+    --backend gloo (the launcher starts its two ranks); and --backend
+    nccl with two ranks on one card must refuse."""
     import tempfile
     from repro_torch.launch import train
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         argv = ["--no-smoke", "--arch", "proxy-8b", "--layers",
-                str(TRAIN_LAYERS), "--steps", "1", "--batch", str(TRAIN_B),
-                "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
-                "--ckpt-every", "0", "--ckpt-dir", d]
+                str(TRAIN_LAYERS), "--steps", str(MESH_TRAIN_STEPS),
+                "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr",
+                str(TRAIN_LR), "--ckpt-every", "0", "--ckpt-dir", d]
         try:
             train.run(argv + ["--model-parallel", "2"])
         except ValueError as e:
@@ -3959,26 +4060,45 @@ def mesh_train(torch):
         two = train.run(argv + ["--model-parallel", "2", "--backend",
                                 "gloo"])
         two_s = time.perf_counter() - t0
-    l1, l2 = one["history"][0]["loss"], two["history"][0]["loss"]
-    rel = abs(l2 - l1) / abs(l1)
+    h1, h2 = one["history"], two["history"]
+    if len(h1) != MESH_TRAIN_STEPS or len(h2) != MESH_TRAIN_STEPS:
+        fail(f"mesh train: {len(h1)} / {len(h2)} steps recorded")
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    loss = rel(h2[0]["loss"], h1[0]["loss"])
+    grad = rel(h2[0]["grad_norm"], h1[0]["grad_norm"])
+    fall1 = h1[0]["loss"] - h1[1]["loss"]
+    fall2 = h2[0]["loss"] - h2[1]["loss"]
+    drop = rel(fall2, fall1)
     print(f"mesh train: proxy-8b {TRAIN_LAYERS} layers, {TRAIN_B} x "
-          f"{TRAIN_S} tokens: loss {l1:.6f} one rank, {l2:.6f} on "
-          f"--model-parallel 2 (rel. {rel:.3g}, tol {MESH_TRAIN_LOSS_REL}); "
-          f"step {one['history'][0]['seconds']:.3f} s / "
-          f"{two['history'][0]['seconds']:.3f} s, runs {one_s:.1f} s / "
-          f"{two_s:.1f} s")
-    if not rel <= MESH_TRAIN_LOSS_REL:
-        fail(f"mesh train: loss {l2} vs one rank's {l1}")
+          f"{TRAIN_S} tokens, {MESH_TRAIN_STEPS} steps, one rank / "
+          f"--model-parallel 2: losses {[round(h['loss'], 6) for h in h1]}"
+          f" / {[round(h['loss'], 6) for h in h2]}; step 1 loss rel. "
+          f"{loss:.3g} (tol {MESH_TRAIN_LOSS_REL}), grad norm "
+          f"{h1[0]['grad_norm']:.6g} / {h2[0]['grad_norm']:.6g} (rel. "
+          f"{grad:.3g}, tol {MESH_TRAIN_GRAD_REL}); the update's fall in "
+          f"loss {fall1:.6f} / {fall2:.6f} (rel. {drop:.3g}, tol "
+          f"{MESH_TRAIN_DROP_REL}); step {h1[-1]['seconds']:.3f} s / "
+          f"{h2[-1]['seconds']:.3f} s, runs {one_s:.1f} s / {two_s:.1f} s")
+    if not loss <= MESH_TRAIN_LOSS_REL:
+        fail(f"mesh train: loss {h2[0]['loss']} vs one rank's "
+             f"{h1[0]['loss']}")
+    if not grad <= MESH_TRAIN_GRAD_REL:
+        fail(f"mesh train: grad norm {h2[0]['grad_norm']} vs one rank's "
+             f"{h1[0]['grad_norm']}")
+    if not drop <= MESH_TRAIN_DROP_REL:
+        fail(f"mesh train: the first update lowered the loss by {fall2}, "
+             f"one rank's by {fall1}")
 
 
 def mesh_path(torch, errs):
     """The mesh phase: (a) proxy-8b's decode cell armed on a 1x1 NCCL
     mesh, held to the unarmed path; (b) two gloo ranks on the card:
-    proxy-8b TP / sequence-sharded, qwen2-moe-a2.7b expert-parallel, and a
-    --model-parallel 2 train step.  Returns K1's row at the sharded chunk
-    shape."""
+    proxy-8b TP / sequence-sharded in bf16 and fp32, qwen2-moe-a2.7b
+    expert-parallel, and --model-parallel 2 train steps.  Returns K1's row
+    at the sharded chunk shape."""
     import tempfile
-    from repro_torch.configs import base as cfgs
     from repro_torch.kernels.decode_attention import ops as dec_ops
     t0 = time.perf_counter()
     card = card_line()
@@ -3989,24 +4109,31 @@ def mesh_path(torch, errs):
         ta = time.perf_counter()
         run_ranks(mesh_rank, (tmp, 2), 2)
         ranks = [torch.load(str(Path(tmp) / f"rank{r}.pt")) for r in (0, 1)]
-        ref = torch.load(str(Path(tmp) / "mesh_a.pt"))
+        refs = {tag: torch.load(str(Path(tmp) / f"mesh_{tag}.pt"))
+                for tag in ("bf16", "fp32")}
     for r, res in enumerate(ranks):
         if "error" in res:
             fail(f"mesh rank {r}:\n{res['error']}")
     tb = time.perf_counter()
-    L = cfgs.get_config("proxy-8b").num_layers
-    for r, res in enumerate(ranks):
-        p = res["proxy"]
-        print(f"mesh (b) rank {r}: proxy-8b weights {p['weights_gb']:.2f} GB,"
-              f" cache {p['cache_gb']:.2f} GB, built in {p['built_s']:.1f} s;"
-              f" K1 launches {p['k1']} ({p['sharded']} sharded calls), "
-              f"decode step median {statistics.median(p['step_ms']):.1f} ms,"
-              f" peak {p['peak_gb']:.1f} GB; {card}")
-        if p["k1"] != L * MESH_STEPS or p["sharded"] != L * MESH_STEPS:
-            fail(f"mesh (b) rank {r}: K1 ran {p['k1']} times, expected "
-                 f"{L * MESH_STEPS}")
-        hold_mesh_logits(torch, f"(b) rank {r} two gloo ranks vs (a)",
-                         p["logits"], ref["logits"])
+    tols = {"bf16": (MESH_TP_LOGITS_REL, "(a)"),
+            "fp32": (MESH_FP32_REL, "one rank unarmed")}
+    for tag, cfg in mesh_configs().items():
+        L = cfg.num_layers
+        tol, against = tols[tag]
+        for r, res in enumerate(ranks):
+            p = res[tag]
+            print(f"mesh (b) rank {r} {tag}: proxy-8b weights "
+                  f"{p['weights_gb']:.2f} GB, cache {p['cache_gb']:.2f} GB, "
+                  f"built in {p['built_s']:.1f} s; K1 launches {p['k1']} "
+                  f"({p['sharded']} sharded calls), decode step median "
+                  f"{statistics.median(p['step_ms']):.1f} ms, peak "
+                  f"{p['peak_gb']:.1f} GB; {card}")
+            if p["k1"] != L * MESH_STEPS or p["sharded"] != L * MESH_STEPS:
+                fail(f"mesh (b) rank {r} {tag}: K1 ran {p['k1']} times, "
+                     f"expected {L * MESH_STEPS}")
+            hold_mesh_logits(torch, f"(b) rank {r} {tag} two gloo ranks vs "
+                             f"{against}", p["logits"], refs[tag]["logits"],
+                             tol)
     for r, res in enumerate(ranks):
         m = res["moe"]
         print(f"mesh (b) rank {r}: qwen2-moe-a2.7b experts a rank "
@@ -4016,6 +4143,17 @@ def mesh_path(torch, errs):
             fail(f"mesh (b) rank {r}: qwen2-moe not expert-parallel "
                  f"({m['experts_local']}, {m['ep_layers']} layers)")
     m = ranks[0]["moe"]
+    layer_rel = max(t for t, _ in m["layers"])
+    aux_rel = max(x for _, x in m["layers"])
+    print(f"mesh (b): qwen2-moe expert-parallel MoE layers vs the one-rank "
+          f"MoE on the same inputs: {len(m['layers'])} layers, largest "
+          f"rel. L2 {layer_rel:.4g} (tol {MESH_MOE_LAYER_REL}), aux "
+          f"rel. {aux_rel:.3g} (tol {MESH_MOE_AUX_REL}); by layer "
+          f"{[float(f'{t:.3g}') for t, _ in m['layers']]}")
+    if len(m["layers"]) != 24 or not (layer_rel <= MESH_MOE_LAYER_REL
+                                      and aux_rel <= MESH_MOE_AUX_REL):
+        fail("mesh (b): qwen2-moe's expert-parallel MoE layers differ from "
+             "the one-rank MoE on the same inputs")
     tol = SERVE_TOL["qwen2-moe-a2.7b"]["decode_logits_rel"]
     print(f"mesh (b): qwen2-moe expert-parallel vs one rank: max rel. L2 "
           f"{m['rel']:.4g} (tol {tol}), {m['rows_over']} positions over, "

@@ -194,10 +194,8 @@ def flash_decode_sharded(q, k_cache, v_cache, lengths, *, mesh,
     flash-decode over its chunk of Smax / n keys (the kernel on a CUDA
     tensor, or it raises; the plain version on the CPU or under
     ``impl="reference"``) with the chunk's local lengths, and the partials
-    are combined exactly:
-        out = sum_s out_s * w_s / sum_s w_s,   w_s = exp(lse_s - max lse)
-    A chunk that holds no valid key has lse = -inf and weight 0 (never
-    NaN).  Collectives: one all-reduce MAX of [B,H,1] and SUMs of
+    are combined exactly by ``combine_partials`` (an empty chunk weighs
+    0).  Collectives: one all-reduce MAX of [B,H,1] and SUMs of
     [B,1,H,hd] and [B,H,1] over ``seq_axis``.  Returns a DTensor [B,1,H,hd]
     (batch over ``dp_axes``, replicated over ``seq_axis``).
     """
@@ -212,24 +210,46 @@ def flash_decode_sharded(q, k_cache, v_cache, lengths, *, mesh,
     k_l = _local(k_cache, mesh, c_spec)
     v_l = _local(v_cache, mesh, c_spec)
     len_l = _local(lengths, mesh, (bs,))
-    idx = mesh.get_local_rank(seq_axis)
     chunk = k_l.shape[1]
-    loc_len = (len_l.to(torch.int32) - idx * chunk).clamp(0, chunk)
+    loc_len = chunk_lengths(len_l, mesh.get_local_rank(seq_axis), chunk)
     out, lse = flash_decode(q_l, k_l, v_l, loc_len, impl=impl,
                             return_lse=True)
-    lse = torch.where((loc_len == 0)[:, None, None],
-                      torch.full_like(lse, -math.inf), lse)
     group = mesh.get_group(seq_axis)
-    lse_max = lse.clone()
-    dist.all_reduce(lse_max, op=dist.ReduceOp.MAX, group=group)
-    wgt = torch.exp(lse - lse_max)                       # [B,H,1]
-    wgt = torch.where(torch.isfinite(wgt), wgt, torch.zeros_like(wgt))
-    num = out.float() * wgt[:, None]                     # [B,1,H,hd]
-    dist.all_reduce(num, group=group)
-    dist.all_reduce(wgt, group=group)
-    res = (num / wgt.clamp_min(1e-30)[:, None]).to(q_l.dtype)
+    ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+
+    def all_reduce(t, op):
+        dist.all_reduce(t, op=ops[op], group=group)
+        return t
+    res = combine_partials(out, lse, loc_len, all_reduce)
     return DTensor.from_local(res, mesh, placements(mesh, q_spec),
                               run_check=False)
+
+
+def chunk_lengths(lengths, idx: int, chunk: int):
+    """The lengths [B] local to sequence chunk ``idx`` of ``chunk`` slots:
+    how many of each row's valid keys lie in that chunk (int32)."""
+    return (lengths.to(torch.int32) - idx * chunk).clamp(0, chunk)
+
+
+def combine_partials(out, lse, loc_len, reduce):
+    """Combine flash-decode partials over sequence chunks by logsumexp:
+        out = sum_s out_s * w_s / sum_s w_s,   w_s = exp(lse_s - max lse)
+
+    out [..., B,1,H,hd] and lse [..., B,H,1] are one chunk's partials and
+    loc_len [..., B] its local lengths.  ``reduce(t, op)`` reduces ``t``
+    over the chunks with op "max" or "sum" and returns the result in
+    ``t``'s shape: an all-reduce across ranks, or a reduction over a
+    leading chunk dimension in one process.  A chunk with no valid key
+    weighs 0 whatever its lse (the kernel writes -inf there, the TPU kernel
+    0); a row whose every chunk is empty gives 0, never NaN."""
+    lse = torch.where((loc_len == 0)[..., None, None],
+                      torch.full_like(lse, -math.inf), lse)
+    lse_max = reduce(lse.clone(), "max")
+    wgt = torch.exp(lse - lse_max)                       # [..., B,H,1]
+    wgt = torch.where(torch.isfinite(wgt), wgt, torch.zeros_like(wgt))
+    num = reduce(out.float() * wgt.unsqueeze(-3), "sum")  # [..., B,1,H,hd]
+    den = reduce(wgt, "sum")
+    return (num / den.clamp_min(1e-30).unsqueeze(-3)).to(out.dtype)
 
 
 def write_kv_sharded(cache_k, cache_v, k_new, v_new, start, *, mesh,

@@ -89,22 +89,25 @@ def test_decode_kernel(cuda, dtype, hd, G):
 
 def _combine_chunks(q, kc, vc, lengths, n, impl):
     """flash-decode over n sequence chunks, each with its local lengths
-    and lse, combined by logsumexp as ``flash_decode_sharded`` combines
-    its ranks' partials (empty chunks weigh 0)."""
+    and lse, combined by ``combine_partials``, the combine of
+    ``flash_decode_sharded``, with its all-reduces as reductions over the
+    stacked chunks."""
     chunk = kc.shape[1] // n
-    outs, lses = [], []
+    outs, lses, locs = [], [], []
     for c in range(n):
-        loc = (lengths - c * chunk).clamp(0, chunk).to(torch.int32)
+        loc = dec_ops.chunk_lengths(lengths, c, chunk)
         o, lse = dec_ops.flash_decode(q, kc[:, c * chunk:(c + 1) * chunk],
                                       vc[:, c * chunk:(c + 1) * chunk], loc,
                                       impl=impl, return_lse=True)
-        lses.append(torch.where((loc == 0)[:, None, None],
-                                torch.full_like(lse, -float("inf")), lse))
-        outs.append(o.float())
-    m = torch.stack(lses).amax(0)
-    w = [torch.nan_to_num(torch.exp(x - m), nan=0.0) for x in lses]
-    num = sum(o * wi[:, None] for o, wi in zip(outs, w))
-    return (num / sum(w).clamp_min(1e-30)[:, None]).to(q.dtype)
+        outs.append(o)
+        lses.append(lse)
+        locs.append(loc)
+
+    def over_chunks(t, op):
+        r = t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+        return r.expand_as(t).clone()
+    return dec_ops.combine_partials(torch.stack(outs), torch.stack(lses),
+                                    torch.stack(locs), over_chunks)[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -205,3 +205,43 @@ def test_placements():
     assert shd.placements(m, (None, "data", "model")) == (Shard(1), Shard(2))
     assert shd.placements(m, (("data",), None)) == (Shard(0), Replicate())
     assert shd.placements(m, ()) == (Replicate(), Replicate())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_combine_partials_over_chunks(n):
+    """``combine_partials``, the combine of ``flash_decode_sharded``, over
+    the plain flash-decode of n sequence chunks (its all-reduces as
+    reductions over the stacked chunks) equals one pass over the whole
+    cache on every row that holds a key.  An empty chunk weighs 0 whatever
+    its lse (the TPU kernel writes 0 there), and a row whose every chunk
+    is empty gives zeros."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    rng = np.random.default_rng(5)
+    B, Smax, KV, H, hd = 5, 64, 2, 8, 16
+    q, kc, vc = (torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+                 for s in [(B, 1, H, hd), (B, Smax, KV, hd),
+                           (B, Smax, KV, hd)])
+    lengths = torch.tensor([0, 1, 20, 40, 64], dtype=torch.int32)
+    chunk = Smax // n
+    outs, lses, locs = [], [], []
+    for c in range(n):
+        loc = dec_ops.chunk_lengths(lengths, c, chunk)
+        o, lse = dec_ops.flash_decode(q, kc[:, c * chunk:(c + 1) * chunk],
+                                      vc[:, c * chunk:(c + 1) * chunk], loc,
+                                      return_lse=True)
+        outs.append(o)
+        lses.append(torch.where((loc == 0)[:, None, None],
+                                torch.zeros_like(lse), lse))
+        locs.append(loc)
+
+    def over_chunks(t, op):
+        r = t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+        return r.expand_as(t).clone()
+    got = dec_ops.combine_partials(torch.stack(outs), torch.stack(lses),
+                                   torch.stack(locs), over_chunks)
+    assert torch.isfinite(got).all()
+    for c in range(1, n):
+        assert torch.equal(got[c], got[0])
+    whole = dec_ops.flash_decode(q[1:], kc[1:], vc[1:], lengths[1:])
+    torch.testing.assert_close(got[0][1:], whole, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[0][0], torch.zeros_like(got[0][0]))
