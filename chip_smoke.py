@@ -58,10 +58,11 @@ checkpoint is held to the trained state bit for bit, and a second run
 resumes from it; then one ``loss_fn`` backward of proxy-8b, of
 recurrentgemma-9b (one period and its tail, two microbatches), of
 rwkv6-1.6b and of whisper-base goes through K2, K4 and K5 (their
-autograd Functions) and through the plain versions, with gates on the
-launch counts, on every gradient leaf and on the loss falling over a few
-train steps.  Last it times each kernel beside its plain version, its
-bound and, where one exists, one PyTorch library call.  The last line is a JSON object with
+autograd Functions; K4's backward is K4 run in reverse) and through the
+plain versions, with gates on the launch counts, on every gradient leaf
+and on the loss falling over a few train steps.  Last it times each
+kernel beside its plain version, its bound and, where one exists, one
+PyTorch library call.  The last line is a JSON object with
 ``"ok": true``; any failed check exits non-zero without it.  It needs no
 network and imports nothing of JAX.
 """
@@ -239,6 +240,8 @@ GRAD_CELLS = {"proxy-8b": (TRAIN_LAYERS, TRAIN_B, TRAIN_S, "bfloat16"),
               "whisper-base": (None, 8, 128, "bfloat16")}
 # train steps of each cell after its gradient check (the loss must fall)
 GRAD_STEPS = 2
+# the gradients the models ask of K4: da and db (h0 is the zero state)
+RGLRU_NEEDS = (True, True, False)
 # The mesh phase (mesh_path), gates stated before its first run.
 # proxy-8b at full width decodes MESH_STEPS tokens at B = MESH_B over a
 # MESH_SLOTS-slot cache (17.2 GB of bf16) filled from seeds, the rows'
@@ -309,6 +312,10 @@ KERNEL_FILES = {
                         "src/repro/kernels/similarity_topk/kernel.py:69"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan/kernel.py:46"),
+    # K4 run in reverse: the gradient of the scan (the JAX package
+    # differentiates lax.scan around the same TPU kernel's plain version)
+    "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru_scan/kernel.py:46"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan/kernel.py:55"),
 }
@@ -669,15 +676,21 @@ def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
     the served models' widths (K4: W = 4096; K5: 32 heads of 64) and the
     full shapes (B = 8, S = 384), a served decode step (S = 1) and odd
     sizes, K5 also with decays that underflow to 0; K5 also chained: two launches over the halves, the second from
-    the first's state, equal one launch over the whole.  K4 must give the
-    plain version's bits (both round the multiply and the add apart);
-    K5 within TOL["float32"] relative to the largest plain value."""
+    the first's state, equal one launch over the whole.  K4 also at the
+    train shape (B = 1, S = 2560), and K4 in reverse (the backward)
+    against the plain reverse, with every gradient and with the model's
+    (no dh0).  K4 both ways must give the plain version's bits (both
+    round the multiply and the add apart); K5 within TOL["float32"]
+    relative to the largest plain value."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     errs.setdefault("rglru_scan", 0.0)
+    errs.setdefault("rglru_scan_bwd", 0.0)
     errs.setdefault("rwkv6_scan", 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for B, S, W in ((8, 384, 4096), (8, 45, 4096), (3, 37, 300)):
+        for B, S, W in ((8, 384, 4096), (8, 45, 4096), (3, 37, 300),
+                        (1, 2560, 4096)):
             a = decays(torch, gen, (B, S, W), dev).to(dtype)
             b = torch.randn((B, S, W), generator=gen, device=dev).to(dtype)
             h0 = torch.randn((B, W), generator=gen, device=dev)
@@ -686,12 +699,28 @@ def check_scans(torch, rglru_ops, rwkv_ops, dev, errs):
             torch.cuda.synchronize()
             e = max(max_err(hs, ref_hs), max_err(hT, ref_hT))
             same = torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+            d_hs = torch.randn((B, S, W), generator=gen, device=dev)
+            d_hT = torch.randn((B, W), generator=gen, device=dev)
+            want = rglru_scan_bwd_ref(a, ref_hs, h0, d_hs, d_hT)
+            e_bwd, same_bwd = 0.0, True
+            for needs in ((True, True, True), (True, True, False)):
+                got = rglru_ops.rglru_scan_bwd_cuda(a, hs, h0, d_hs, d_hT,
+                                                    needs)
+                torch.cuda.synchronize()
+                for g, w, n in zip(got, want, needs):
+                    if n:
+                        e_bwd = max(e_bwd, max_err(g, w))
+                        same_bwd &= g.dtype == w.dtype and torch.equal(g, w)
+                    else:
+                        same_bwd &= g is None
             print(f"K4 rglru {name} B={B} S={S} W={W}: max|h-plain|={e:.3g}"
-                  f", bitwise equal {same}")
-            if not same:
+                  f", bitwise equal {same}; reverse max|grad-plain|="
+                  f"{e_bwd:.3g}, bitwise equal {same_bwd}")
+            if not (same and same_bwd):
                 fail(f"K4 {name} B={B} S={S} W={W} differs from its plain "
-                     "version")
+                     "version (forward or reverse)")
             errs["rglru_scan"] = max(errs["rglru_scan"], e)
+            errs["rglru_scan_bwd"] = max(errs["rglru_scan_bwd"], e_bwd)
         for B, S, H, hd, small in ((8, 384, 32, 64, False),
                                    (8, 45, 32, 64, False),
                                    (8, 1, 32, 64, False),
@@ -1731,6 +1760,15 @@ def train_kernels():
 def zero_launches(mods):
     for m in mods.values():
         m.LAUNCHES = 0
+        if hasattr(m, "REVERSE_LAUNCHES"):
+            m.REVERSE_LAUNCHES = 0
+
+
+def launch_counts(mods):
+    """Each kernel's launches, K4's reverse (its backward) apart."""
+    got = {n: m.LAUNCHES for n, m in mods.items()}
+    got["rglru_scan_bwd"] = mods["rglru_scan"].REVERSE_LAUNCHES
+    return got
 
 
 def device_busy(events):
@@ -1753,9 +1791,12 @@ def device_busy(events):
     return busy + hi - lo, by_name
 
 
-def profile_step(torch, what, fn):
+def profile_step(torch, what, fn, share_of=None):
     """One call of ``fn`` under the profiler: wall time, device busy time
-    and idle share, and the device work that took most of it."""
+    and idle share, and the device work that took most of it.  Returns
+    the idle share, and with ``share_of`` also the share of the busy time
+    spent in kernels whose name holds that string (None, None where no
+    device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1766,14 +1807,18 @@ def profile_step(torch, what, fn):
     busy, by_name = device_busy(device_events(prof))
     if not busy:
         print(f"profile {what}: no device time recorded (not measured)")
-        return None
+        return (None, None) if share_of else None
     idle = 1 - busy / 1e9 / wall
     print(f"profile {what}: wall {wall * 1e3:.1f} ms (profiler on), device "
           f"busy {busy / 1e6:.1f} ms, idle share {idle:.3f}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, total) in top[:8]:
         print(f"  {total / 1e6:9.3f} ms {n:6d}x  {name[:90]}")
-    return idle
+    if not share_of:
+        return idle
+    ns = sum(total for name, (_, total) in by_name.items() if share_of in name)
+    print(f"  {share_of}: {ns / 1e6:.3f} ms, {ns / busy:.4f} of the busy time")
+    return idle, ns / busy
 
 
 def train_batch(torch, cfg, B, S, dev, seed=SEED):
@@ -1919,6 +1964,8 @@ def grad_cell(torch, arch, layers, B, S, dtype):
     mods = train_kernels()
     calls = {n: [] for n in mods}
     want = {n: accum * c for n, c in remat_launches(cfg).items()}
+    # K4's reverse: one a RG-LRU layer's backward, checkpointed or not
+    want["rglru_scan_bwd"] = accum * cfg.block_pattern.count(cfgs.RGLRU)
     n_params = sum(t.numel() for t in optim.leaves(params))
 
     def grads(reference):
@@ -1928,8 +1975,7 @@ def grad_cell(torch, arch, layers, B, S, dtype):
         with kernel_impls("reference" if reference else "auto"):
             loss, _, g = step.grads(params, batch)
         loss = float(loss)
-        return loss, g, time.perf_counter() - t0, {
-            n: m.LAUNCHES for n, m in mods.items()}
+        return loss, g, time.perf_counter() - t0, launch_counts(mods)
 
     def keep(name):
         """Keep the inputs of the launch with the most work."""
@@ -1947,8 +1993,8 @@ def grad_cell(torch, arch, layers, B, S, dtype):
     peak = torch.cuda.max_memory_allocated() / 1e9
     if launches != want:
         fail(f"{arch} train: launches {launches}, want {want} (2 a "
-             f"checkpointed layer, 1 a tail / encoder layer, x {accum} "
-             "microbatches)")
+             f"checkpointed layer, 1 a tail / encoder layer, K4's reverse 1 "
+             f"a RG-LRU layer, x {accum} microbatches)")
     ref_loss, ref_g, ref_dt, ref_launches = grads(True)
     if any(ref_launches.values()):
         fail(f"{arch} train: the plain path launched {ref_launches}")
@@ -1995,15 +2041,19 @@ def grad_cell(torch, arch, layers, B, S, dtype):
         _, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         secs.append(time.perf_counter() - t0)
-        if {n: m.LAUNCHES for n, m in mods.items()} != want:
+        if launch_counts(mods) != want:
             fail(f"{arch} train step {i}: launches differ from {want}")
     step_peak = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{arch} train steps: losses {losses} not finite or not falling")
-    idle = None
+    idle = reverse_share = None
     if arch == "proxy-8b":
         idle = profile_step(torch, f"{arch} train step",
                             lambda: step(state, batch))
+    elif arch == "recurrentgemma-9b":      # and K4's reverse in it
+        idle, reverse_share = profile_step(
+            torch, f"{arch} train step", lambda: step(state, batch),
+            share_of="rglru_bwd_kernel")
     print(f"train steps: {arch} losses {[round(x, 4) for x in losses]}, "
           f"step seconds {[round(x, 3) for x in secs]}, peak "
           f"{step_peak:.1f} GB with fp32 moments")
@@ -2011,7 +2061,9 @@ def grad_cell(torch, arch, layers, B, S, dtype):
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "calls": calls, "step_s": secs,
-            "peak_gb": step_peak, "idle": idle}
+            "peak_gb": step_peak, "idle": idle,
+            "k4_reverse_share": reverse_share, "grads_s": dt,
+            "plain_grads_s": ref_dt}
 
 
 def train_path(torch, errs):
@@ -2032,21 +2084,34 @@ def train_path(torch, errs):
     for arch, cell in cells.items():
         idle = "not measured" if cell["idle"] is None else \
             f"{cell['idle']:.3f}"
+        share = ("" if cell["k4_reverse_share"] is None else
+                 f", K4's reverse {cell['k4_reverse_share']:.4f} of the busy "
+                 "time")
         print(f"train: {arch} step {statistics.median(cell['step_s']):.3f} "
               f"s (median of {GRAD_STEPS}), peak {cell['peak_gb']:.1f} GB, "
-              f"idle share {idle}; {card}")
+              f"idle share {idle}{share}; one backward {cell['grads_s']:.2f} "
+              f"s (plain path {cell['plain_grads_s']:.2f} s); {card}")
     rows = []
     for arch, cell in cells.items():
         for name, launched in cell["launches"].items():
-            if not launched:
-                continue
+            if not launched or name == "rglru_scan_bwd":
+                continue        # its row is made beside K4's forward's
             (args, kw), = cell["calls"][name]
             if name == "flash_attention":
                 t = time_flash(torch, flash_ops, *args, **kw, iters=20)
                 err = gate_err("K2", t.pop("max_abs_err"), args[0].dtype)
             elif name == "rglru_scan":
-                t = time_rglru(torch, rglru_ops, "train", *args, iters=20)
+                t, t_bwd = time_rglru(torch, rglru_ops, "train", *args,
+                                      iters=20)
                 err = t.pop("max_abs_err")
+                errs["rglru_scan_bwd"] = max(errs["rglru_scan_bwd"],
+                                             t_bwd["max_abs_err"])
+                rows.append(kernel_row(
+                    "rglru_scan_bwd", cell["launches"]["rglru_scan_bwd"],
+                    t_bwd.pop("max_abs_err"), t_bwd, path=f"train {arch}",
+                    step_s=statistics.median(cell["step_s"]),
+                    peak_gb=cell["peak_gb"], idle_share=cell["idle"],
+                    k4_reverse_share=cell["k4_reverse_share"]))
             else:
                 t = time_rwkv(torch, rwkv_ops, "train", *args)
                 err = t.pop("max_abs_err")
@@ -2072,25 +2137,77 @@ def kernel_row(name, launches, err, t, **extra):
             "launches": launches, "max_abs_err": err, **t, **extra}
 
 
+def rglru_bounds(a, needs=RGLRU_NEEDS):
+    """K4's bounds (ms, by) forward and in reverse: a, b read in their
+    type, hs written in fp32, h0 read and hT written; in reverse a, d_hs
+    and (for da) hs read, da and db written in a's type, d_hT (and h0)
+    read, dh0 written where asked for."""
+    B, S, W = a.shape
+    es, n = a.element_size(), B * S * W
+    fwd = bound(2 * es * n + 4 * (n + 2 * B * W), 2.0 * n, "float32")
+    bwd = bound((es + 4 + needs[0] * (4 + es) + needs[1] * es) * n
+                + 4 * (1 + needs[0] + needs[2]) * B * W,
+                (2.0 + needs[0]) * n + needs[2] * B * W, "float32")
+    return fwd, bwd
+
+
 def time_rglru(torch, rglru_ops, what, a, b, h0, iters=50):
+    """K4 forward and in reverse (the gradients the model asks for,
+    RGLRU_NEEDS) at one shape: each held to its plain version bit for bit,
+    timed by events and by the profiler's device time, beside its plain
+    version and its bound; the reverse also beside the plain recompute
+    that was the backward before it (autograd of the plain forward).
+    Returns the forward's and the reverse's timings."""
+    from repro_torch.kernels.autograd import recompute_grads
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
     out = rglru_ops.rglru_scan_cuda(a, b, h0)
     ref = rglru_ops.rglru_scan(a, b, h0, impl="reference")
     err = max(max_err(out[0], ref[0]), max_err(out[1], ref[1]))
     if err != 0.0:
         fail(f"K4 {what}: differs from its plain version by {err}")
     B, S, W = a.shape
+    gen = torch.Generator(device=a.device).manual_seed(SEED + 9)
+    d_hs = torch.randn((B, S, W), generator=gen, device=a.device)
+    d_hT = torch.randn((B, W), generator=gen, device=a.device)
+    needs = RGLRU_NEEDS
+
+    def reverse():
+        return rglru_ops.rglru_scan_bwd_cuda(a, out[0], h0, d_hs, d_hT, needs)
+
+    got = reverse()
+    want = rglru_scan_bwd_ref(a, ref[0], h0, d_hs, d_hT)
+    bwd_err = max(max_err(g, w) for g, w, n in zip(got, want, needs) if n)
+    if bwd_err != 0.0:
+        fail(f"K4 {what}: the reverse differs from the plain reverse by "
+             f"{bwd_err}")
+    del got, want
     ms = cuda_time_ms(lambda: rglru_ops.rglru_scan_cuda(a, b, h0), iters)
+    dev_ms = device_ms(lambda: rglru_ops.rglru_scan_cuda(a, b, h0))
     plain_ms = cuda_time_ms(lambda: rglru_ops.rglru_scan(
         a, b, h0, impl="reference"), 3, warmup=1)
-    es = a.element_size()
-    nbytes = 2 * es * B * S * W + 4 * (B * S * W + 2 * B * W)
-    b_ms, b_by = bound(nbytes, 2.0 * B * S * W, "float32")
-    print(f"time K4 rglru {what} B={B} S={S} W={W} "
-          f"{str(a.dtype).split('.')[-1]}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}); "
-          f"max|err| {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+    bwd_ms = cuda_time_ms(reverse, iters)
+    bwd_dev_ms = device_ms(reverse)
+    bwd_plain_ms = cuda_time_ms(lambda: rglru_scan_bwd_ref(
+        a, out[0], h0, d_hs, d_hT), 2, warmup=1)
+    recompute_ms = cuda_time_ms(lambda: recompute_grads(
+        rglru_scan_ref, (a, b, h0), needs, (d_hs, d_hT)), 2, warmup=1)
+    (b_ms, b_by), (bb_ms, bb_by) = rglru_bounds(a)
+    dt = str(a.dtype).split('.')[-1]
+    print(f"time K4 rglru {what} B={B} S={S} W={W} {dt}: kernel {ms:.4f} "
+          f"ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, library "
+          f"none, bound {b_ms:.5f} ms ({b_by}); max|err| {err:.3g}")
+    print(f"time K4 rglru reverse {what} B={B} S={S} W={W} {dt} (da, db): "
+          f"kernel {bwd_ms:.4f} ms (device {fmt_ms(bwd_dev_ms)}), plain "
+          f"reverse {bwd_plain_ms:.4f} ms, plain recompute (the backward "
+          f"before) {recompute_ms:.4f} ms, library none, bound "
+          f"{bb_ms:.5f} ms ({bb_by}); max|err| {bwd_err:.3g}")
+    return ({"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "max_abs_err": err},
+            {"ms": bwd_ms, "device_ms": bwd_dev_ms, "plain_ms": bwd_plain_ms,
+             "recompute_ms": recompute_ms, "bound_ms": bb_ms,
+             "bound_by": bb_by, "library_ms": None, "max_abs_err": bwd_err})
 
 
 def time_rwkv(torch, rwkv_ops, what, r, k, v, w, u, s0, iters=20):
@@ -2171,19 +2288,28 @@ def recurrentgemma_path(torch, errs):
         fail("recurrentgemma-9b is not at full width and depth")
     rows = []
     a_args, _ = most_work(calls["rglru_scan"], lambda a: a[0].numel())
-    t = time_rglru(torch, rglru_ops, "served", *a_args)
+    t, t_bwd = time_rglru(torch, rglru_ops, "served", *a_args)
     dev = a_args[0].device
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     B, S, W = 8, 384, 4096
-    full = time_rglru(torch, rglru_ops, "full",
-                      decays(torch, gen, (B, S, W), dev),
-                      torch.randn((B, S, W), generator=gen, device=dev),
-                      torch.zeros((B, W), device=dev))
+    full, full_bwd = time_rglru(
+        torch, rglru_ops, "full", decays(torch, gen, (B, S, W), dev),
+        torch.randn((B, S, W), generator=gen, device=dev),
+        torch.zeros((B, W), device=dev))
     err = max(errs["rglru_scan"], t.pop("max_abs_err"),
               full.pop("max_abs_err"))
     errs["rglru_scan"] = err
-    rows.append(kernel_row("rglru_scan", launches["rglru_scan"], err, t,
-                           path="recurrentgemma-9b", full_ms=full["ms"]))
+    errs["rglru_scan_bwd"] = max(errs["rglru_scan_bwd"], t_bwd["max_abs_err"],
+                                 full_bwd["max_abs_err"])
+    rows.append(kernel_row(
+        "rglru_scan", launches["rglru_scan"], err, t,
+        path="recurrentgemma-9b", full_ms=full["ms"],
+        full_device_ms=full["device_ms"], reverse_ms=t_bwd["ms"],
+        reverse_device_ms=t_bwd["device_ms"],
+        reverse_bound_ms=t_bwd["bound_ms"],
+        full_reverse_ms=full_bwd["ms"],
+        full_reverse_device_ms=full_bwd["device_ms"],
+        full_reverse_bound_ms=full_bwd["bound_ms"]))
 
     def r(*shape):
         return torch.randn(shape, generator=gen,

@@ -1,11 +1,12 @@
 """Gradients through the hand-written kernels.
 
 The JAX package differentiates its plain attention and ``lax.scan``
-recurrences, never a Pallas kernel, so no kernel here has a backward
-kernel.  Each wrapper's ``torch.autograd.Function`` launches the kernel
-in its forward and, in its backward, recomputes the plain version
-(``ref.py``) from the saved inputs with the forward's arguments and
-differentiates that: the gradient is the plain version's.
+recurrences, never a Pallas kernel.  K2's and K5's
+``torch.autograd.Function`` launch the kernel in their forward and, in
+their backward, recompute the plain version (``ref.py``) from the saved
+inputs with the forward's arguments and differentiate that: the gradient
+is the plain version's.  K4's backward is the kernel run in reverse
+(``rglru_scan/ops.py``), which gives the same bits.
 """
 from __future__ import annotations
 

@@ -11,8 +11,12 @@ both; the served model's are fp32) and the state in fp32: the wrapper
 casts h0 to fp32 where it is not.
 
 Where a, b or h0 requires grad, a CUDA tensor goes through
-:class:`RglruScanFn`: the kernel forward, and a backward that recomputes
-the plain version from the saved inputs.
+:class:`RglruScanFn`: the kernel forward, and a backward that is K4 run
+in reverse (``rglru_scan_bwd_cuda``) from the saved a, h0 and the
+forward's own hs; its launches count on ``REVERSE_LAUNCHES``, so
+``LAUNCHES`` counts forward launches only.  It gives the bits of autograd
+of the plain version, as the plain reverse ``ref.rglru_scan_bwd_ref``
+does on the CPU.
 """
 from __future__ import annotations
 
@@ -21,17 +25,21 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, local, report
-from repro_torch.kernels.autograd import recompute_grads
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                rglru_scan_ref)
 
 LIB = build.CudaLibrary("rglru_scan.cu", {
     "repro_rglru_scan": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p],
+    "repro_rglru_scan_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p],
 })
 
 # Launches of the kernel, counted where the wrapper launches it (runs of
-# the plain version do not count).
+# the plain version do not count): the forward, and the reverse scan of
+# the backward
 LAUNCHES = 0
+REVERSE_LAUNCHES = 0
 
 
 def rglru_scan_cuda(a, b, h0):
@@ -69,20 +77,74 @@ def rglru_scan_cuda(a, b, h0):
     return hs, hT
 
 
+def rglru_scan_bwd_cuda(a, hs, h0, d_hs, d_hT, needs=(True, True, True)):
+    """Launch the reverse kernel: the gradients of the scan that gave
+    ``hs`` from a [B,S,W] and h0 [B,W], against d_hs [B,S,W] and d_hT
+    [B,W].  Returns (da, db [B,S,W] in a's dtype, dh0 [B,W] fp32), each
+    None where ``needs`` says it is not wanted (and not written)."""
+    global REVERSE_LAUNCHES
+    if a.dim() != 3 or a.dtype not in build.DTYPE_CODE:
+        raise TypeError(f"rglru scan backward takes a [B,S,W] of bf16 or "
+                        f"fp32; got {a.dtype} {tuple(a.shape)}")
+    B, S, W = a.shape
+    if (hs.shape != a.shape or d_hs.shape != a.shape
+            or h0.shape != (B, W) or d_hT.shape != (B, W)):
+        raise ValueError(f"rglru scan backward shapes a {tuple(a.shape)}, "
+                         f"hs {tuple(hs.shape)}, d_hs {tuple(d_hs.shape)}, "
+                         f"h0 {tuple(h0.shape)}, d_hT {tuple(d_hT.shape)} "
+                         "do not match")
+    for name, t in (("hs", hs), ("h0", h0), ("d_hs", d_hs), ("d_hT", d_hT)):
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+    a = a.contiguous()
+    h0, d_hs, d_hT = (t.to(torch.float32).contiguous()
+                      for t in (h0, d_hs, d_hT))
+    hs = hs.to(torch.float32).contiguous() if needs[0] else None  # for da
+    da, db = (torch.empty_like(a) if n else None for n in needs[:2])
+    dh0 = torch.empty_like(h0) if needs[2] else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = LIB.load().repro_rglru_scan_bwd(
+        a.data_ptr(), ptr(hs), h0.data_ptr(), d_hs.data_ptr(),
+        d_hT.data_ptr(), ptr(da), ptr(db), ptr(dh0),
+        build.DTYPE_CODE[a.dtype], B, S, W, build.stream_ptr(a.device))
+    build.check(err, "rglru_scan_bwd")
+    REVERSE_LAUNCHES += 1
+    es, n = a.element_size(), B * S * W
+    report("rglru_scan_bwd", lambda: (
+        (2.0 + needs[0]) * n + needs[2] * B * W,
+        (es + 4 + needs[0] * (4 + es) + needs[1] * es) * n
+        + 4 * (1 + needs[0] + needs[2]) * B * W))
+    return da, db, dh0
+
+
 class RglruScanFn(torch.autograd.Function):
-    """``launch(a, b, h0)`` in the forward (the kernel); the backward
-    recomputes the plain version and returns its gradients."""
+    """``launch(a, b, h0)`` in the forward (the kernel); the backward runs
+    the recurrence in reverse from the saved a, h0 and the forward's own
+    hs: the reverse kernel on a CUDA tensor, ``rglru_scan_bwd_ref`` on a
+    CPU one.  Gradients come back in their inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, launch, a, b, h0):
-        ctx.save_for_backward(a, b, h0)
-        return launch(a, b, h0)
+        hs, hT = launch(a, b, h0)
+        ctx.save_for_backward(a, h0, hs)
+        ctx.b_dtype = b.dtype
+        return hs, hT
 
     @staticmethod
     def backward(ctx, d_hs, d_hT):
-        return (None,) + recompute_grads(
-            rglru_scan_ref, ctx.saved_tensors, ctx.needs_input_grad[1:],
-            (d_hs, d_hT))
+        a, h0, hs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        if a.is_cuda:        # b's dtype is a's: the kernel takes no other
+            da, db, dh0 = rglru_scan_bwd_cuda(a, hs, h0, d_hs, d_hT, needs)
+            dh0 = None if dh0 is None else dh0.to(h0.dtype)
+        else:
+            da, db, dh0 = rglru_scan_bwd_ref(a, hs, h0, d_hs, d_hT,
+                                             b_dtype=ctx.b_dtype)
+        return (None,) + tuple(g if n else None
+                               for g, n in zip((da, db, dh0), needs))
 
 
 def rglru_scan(a, b, h0, *, impl: str = "auto"):

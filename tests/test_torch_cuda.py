@@ -10,9 +10,10 @@ order differs), bf16 5e-2 (outputs round to bf16 at different points),
 and 1e-2 where K2 runs without the causal mask over whisper's 1500
 frames (outputs there are ~0.04).
 K4 (RG-LRU scan) is held to its plain version bit for bit (both round
-the multiply and the add separately in fp32); K5 (RWKV-6 scan) within
-2e-4 of the largest plain value (fp32 sums in another order).  K3
-(similarity top-k) is held tighter: values within 1e-5, ids equal
+the multiply and the add separately in fp32), and its reverse (the
+backward) to the plain reverse and to autograd bit for bit; K5 (RWKV-6
+scan) within 2e-4 of the largest plain value (fp32 sums in another
+order).  K3 (similarity top-k) is held tighter: values within 1e-5, ids equal
 except between rows whose plain-version scores lie within 1e-5 of each
 other, and ids exactly equal on sign vectors, where every score is exact.
 """
@@ -30,7 +31,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    rglru_scan_bwd_ref, rglru_scan_ref)
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
 from repro_torch.kernels.similarity_topk import ops as topk_ops  # noqa: E402
@@ -393,7 +395,8 @@ def _decays(seed, shape, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,W", [(3, 37, 300), (8, 384, 4096), (5, 1, 64),
-                                   (1, 9, 1000)])
+                                   (1, 9, 1000), (1, 2560, 4096),
+                                   (1, 300, 4096), (2, 0, 64), (2, 45, 37)])
 def test_rglru_kernel(cuda, dtype, B, S, W):
     a = _decays(22, (B, S, W), cuda).to(dtype)
     b, h0 = _randn(23, [(B, S, W), (B, W)], dtype, cuda)
@@ -405,6 +408,48 @@ def test_rglru_kernel(cuda, dtype, B, S, W):
     assert rglru_ops.LAUNCHES == before + 1
     assert hs.dtype == hT.dtype == torch.float32
     assert torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+
+
+def test_rglru_kernel_unaligned_base(cuda):
+    """a and b contiguous but 4 bytes past a 16-byte boundary: the ring
+    copies them element by element, with the same bits."""
+    B, S, W = 2, 70, 512
+    a = _decays(27, (B * S * W + 1,), cuda)[1:].view(B, S, W)
+    b = _randn(28, [(B * S * W + 1,)], torch.float32, cuda)[0][1:].view(
+        B, S, W)
+    h0 = _randn(29, [(B, W)], torch.float32, cuda)[0]
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    hs, hT = rglru_ops.rglru_scan_cuda(a, b, h0)
+    ref_hs, ref_hT = rglru_ops.rglru_scan(a, b, h0, impl="reference")
+    torch.cuda.synchronize()
+    assert torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 384, 4096),
+                                   (1, 2560, 4096), (5, 1, 64), (1, 9, 1000),
+                                   (2, 0, 64), (2, 45, 37)])
+@pytest.mark.parametrize("needs", [(True, True, True), (False, True, False),
+                                   (True, False, True)])
+def test_rglru_reverse_kernel(cuda, dtype, B, S, W, needs):
+    """K4 in reverse against the plain reverse, bit for bit, with da, db
+    or dh0 left out in turn (the outputs left out are None)."""
+    a = _decays(52, (B, S, W), cuda).to(dtype)
+    b, d_hs = _randn(53, [(B, S, W)] * 2, dtype, cuda)
+    h0, d_hT = _randn(54, [(B, W)] * 2, torch.float32, cuda)
+    hs, _ = rglru_ops.rglru_scan(a, b, h0)
+    before = (rglru_ops.LAUNCHES, rglru_ops.REVERSE_LAUNCHES)
+    got = rglru_ops.rglru_scan_bwd_cuda(a, hs, h0, d_hs.float(), d_hT, needs)
+    want = rglru_scan_bwd_ref(a, hs, h0, d_hs.float(), d_hT)
+    torch.cuda.synchronize()
+    assert (rglru_ops.LAUNCHES, rglru_ops.REVERSE_LAUNCHES) == (
+        before[0], before[1] + 1)
+    for i, (g, w, n) in enumerate(zip(got, want, needs)):
+        if not n:
+            assert g is None
+            continue
+        assert g.dtype == (torch.float32 if i == 2 else dtype)
+        assert torch.equal(g, w)
 
 
 def _rwkv(seed, B, S, H, hd, dtype, device):
@@ -508,7 +553,8 @@ def test_scan_kernels_reject_unsupported(cuda):
 
 # ---------------------------------------------------------------------------
 # gradients through K2, K4 and K5: each wrapper's autograd.Function
-# launches the kernel forward and recomputes the plain version backward
+# launches the kernel forward; K2's and K5's backward recompute the plain
+# version, K4's runs the kernel in reverse
 # ---------------------------------------------------------------------------
 
 
@@ -572,15 +618,27 @@ def test_kernels_launch_without_autograd(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 384, 4096)])
-def test_rglru_kernel_grads(cuda, dtype, B, S, W):
+@pytest.mark.parametrize("B,S,W", [(3, 37, 300), (2, 384, 4096),
+                                   (1, 2560, 4096)])
+def test_rglru_kernel_grads(cuda, dtype, B, S, W, monkeypatch):
+    """The backward is K4 in reverse: one reverse launch, no run of the
+    plain version (forward or reverse), autograd's bits."""
     a = _decays(36, (B, S, W), cuda).to(dtype)
     b, h0 = _randn(37, [(B, S, W), (B, W)], dtype, cuda)
     h0 = h0.float()
     before = rglru_ops.LAUNCHES
-    outs, grads = _grads(rglru_ops.rglru_scan, _leaves(a, b, h0), 38)
+    reverse = rglru_ops.REVERSE_LAUNCHES
+
+    def plain(*args, **kw):
+        raise AssertionError("the kernel path ran the plain version")
+
+    with monkeypatch.context() as m:
+        m.setattr(rglru_ops, "rglru_scan_ref", plain)
+        m.setattr(rglru_ops, "rglru_scan_bwd_ref", plain)
+        outs, grads = _grads(rglru_ops.rglru_scan, _leaves(a, b, h0), 38)
     assert all(o.grad_fn is not None for o in outs)
     assert rglru_ops.LAUNCHES == before + 1
+    assert rglru_ops.REVERSE_LAUNCHES == reverse + 1
     _, ref_grads = _grads(lambda *t: rglru_ops.rglru_scan(
         *t, impl="reference"), _leaves(a, b, h0), 38)
     torch.cuda.synchronize()
@@ -621,12 +679,14 @@ def _remat_launches(cfg):
     """K2, K4, K5 launches of one loss_fn backward with remat: twice for
     each layer whose period runs under activation checkpointing (its
     forward and the recompute), once for the tail's layers and whisper's
-    encoder layers, which do not."""
+    encoder layers, which do not; K4's reverse once for every RG-LRU
+    layer (its backward)."""
     if cfg.is_encoder_decoder:
         return {"flash": cfg.encoder_layers + 2 * 2 * cfg.num_layers,
-                "rglru": 0, "rwkv": 0}
+                "rglru": 0, "rwkv": 0, "rglru_bwd": 0}
     n_body = cfg.num_periods * len(cfg.period)
-    got = {"flash": 0, "rglru": 0, "rwkv": 0}
+    got = {"flash": 0, "rglru": 0, "rwkv": 0,
+           "rglru_bwd": cfg.block_pattern.count(cfgs.RGLRU)}
     kernel = {cfgs.ATTN: "flash", cfgs.LOCAL_ATTN: "flash",
               cfgs.RGLRU: "rglru", cfgs.RWKV: "rwkv"}
     for layer, blk in enumerate(cfg.block_pattern):
@@ -642,8 +702,9 @@ def test_smoke_model_grads_through_kernels(cuda, arch):
     within 2e-4 of its largest plain value and nonzero (whisper's key
     biases, whose gradient is zero in exact arithmetic, within 2e-4 of
     the model's largest); the kernels
-    launch as remat says (``_remat_launches``), the plain path none.
-    S = 40 is past recurrentgemma's window of 32."""
+    launch as remat says (``_remat_launches``; K4's reverse once a
+    RG-LRU layer), the plain path none.  S = 40 is past recurrentgemma's
+    window of 32."""
     from repro_torch.train import optim as toptim
     from repro_torch.train import train_step as tstep
     cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32")
@@ -663,7 +724,8 @@ def test_smoke_model_grads_through_kernels(cuda, arch):
 
     def counts():
         return {"flash": flash_ops.LAUNCHES, "rglru": rglru_ops.LAUNCHES,
-                "rwkv": rwkv_ops.LAUNCHES}
+                "rwkv": rwkv_ops.LAUNCHES,
+                "rglru_bwd": rglru_ops.REVERSE_LAUNCHES}
 
     def run(reference):
         ctx = contextlib.ExitStack()

@@ -4,6 +4,7 @@ commit's build and this tree's, at the shapes ``chip_smoke.py`` times.
 
     mkdir -p OLD && git archive <parent> src/repro_torch | tar -x -C OLD
     python3 tools/kernel_ab.py --old OLD [--kernels decode_attention ...]
+                               [--grad-cell]
 
 ``--old`` is a directory holding the parent's ``src/repro_torch`` (keep it
 out of git's view, in a directory ``.gitignore`` lists): its
@@ -14,15 +15,25 @@ share inputs, card and clocks.  Each shape is timed in ROUNDS
 mean of its turns; a served shape's launches are
 bound by the host, so each of its turns times 200 calls (K1 at every
 shape, K5 but at the full shape).  Every new result is first held to the plain version with
-``chip_smoke.py``'s gates; the old one is only timed.  Needs a CUDA card;
-imports nothing of JAX.  ``--out FILE`` also writes the rows as JSON.
+``chip_smoke.py``'s gates; the old one is only timed.  K4 (``ab_rglru``)
+is timed forward and backward: the old backward is the plain recompute
+that the parent's ``RglruScanFn`` ran, the new one K4 in reverse.
+``--grad-cell`` then runs recurrentgemma-9b's gradient cell of
+``chip_smoke.py`` (``GRAD_CELLS``) with the old and the new K4 swapped
+into the model in turns: one backward, one train step, peak memory, the
+wall time inside K4's backward, and one profiled step of each.  Needs a
+CUDA card; imports nothing of JAX.  ``--out FILE`` also writes the rows
+as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import importlib.util
 import json
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -57,6 +68,10 @@ DECODE_SHAPES = [("proxy-8b served", 8, 32, 8, 128, 128,
 # a served decode step (the 4 COMPLETE rows)
 RWKV_SHAPES = [("served", 8, 128, 32, 64), ("full", 8, 384, 32, 64),
                ("decode step", 4, 1, 32, 64)]
+# (what, B, S, W), fp32 as recurrentgemma-9b makes a and b: its largest
+# served pass, the full shape and a train microbatch (GRAD_CELLS)
+RGLRU_SHAPES = [("served", 8, 128, 4096), ("full", 8, 384, 4096),
+                ("train", 1, 2560, 4096)]
 
 
 def _module(path: Path, name: str):
@@ -88,10 +103,15 @@ def fmt(times):
 ROUNDS = 4
 
 
-def turns(old_fn, new_fn, iters):
+def turns(old_fn, new_fn, iters, old_iters=None):
     """ROUNDS rounds of old, new, new, old: the mean of each version's
-    turns, and every turn's time in order."""
-    t = [smoke.cuda_time_ms(f, iters)
+    turns, and every turn's time in order.  ``old_iters``: the old
+    version's calls a turn where it is far slower (one warm-up call)."""
+    def timed(f):
+        if f is old_fn and old_iters is not None:
+            return smoke.cuda_time_ms(f, old_iters, warmup=1)
+        return smoke.cuda_time_ms(f, iters)
+    t = [timed(f)
          for _ in range(ROUNDS) for f in (old_fn, new_fn, new_fn, old_fn)]
     old = [x for i, x in enumerate(t) if i % 4 in (0, 3)]
     new = [x for i, x in enumerate(t) if i % 4 in (1, 2)]
@@ -262,8 +282,161 @@ def ab_rwkv(torch, old, new, dev):
     return rows
 
 
+def ab_rglru(torch, old, new, dev):
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 9)
+    needs = smoke.RGLRU_NEEDS
+    rows = []
+    for what, B, S, W in RGLRU_SHAPES:
+        a = smoke.decays(torch, gen, (B, S, W), dev)
+        b, d_hs = (torch.randn((B, S, W), generator=gen, device=dev)
+                   for _ in range(2))
+        h0 = torch.zeros((B, W), device=dev)
+        d_hT = torch.randn((B, W), generator=gen, device=dev)
+        hs, hT = new.rglru_scan_cuda(a, b, h0)
+        ref_hs, ref_hT = new.rglru_scan(a, b, h0, impl="reference")
+        got = new.rglru_scan_bwd_cuda(a, hs, h0, d_hs, d_hT, needs)
+        want = rglru_scan_bwd_ref(a, ref_hs, h0, d_hs, d_hT)
+        torch.cuda.synchronize()
+        if not (torch.equal(hs, ref_hs) and torch.equal(hT, ref_hT)
+                and all(torch.equal(g, w)
+                        for g, w, n in zip(got, want, needs) if n)):
+            smoke.fail(f"K4 {what}: differs from its plain version")
+        del got, want, ref_hs
+        iters = 200 if what == "served" else 50
+        old_ms, new_ms, raw = turns(
+            lambda: old.rglru_scan_cuda(a, b, h0),
+            lambda: new.rglru_scan_cuda(a, b, h0), iters)
+        dev_old = smoke.device_ms(lambda: old.rglru_scan_cuda(a, b, h0))
+        dev_new = smoke.device_ms(lambda: new.rglru_scan_cuda(a, b, h0))
+
+        def recompute():          # the parent's RglruScanFn.backward
+            return old.recompute_grads(old.rglru_scan_ref, (a, b, h0), needs,
+                                       (d_hs, d_hT))
+
+        def reverse():
+            return new.rglru_scan_bwd_cuda(a, hs, h0, d_hs, d_hT, needs)
+
+        rec_ms, rev_ms, raw_bwd = turns(recompute, reverse, iters,
+                                        old_iters=1)
+        dev_rev = smoke.device_ms(reverse)
+        (f_ms, f_by), (b_ms, b_by) = smoke.rglru_bounds(a)
+        print(f"ab K4 {what} B={B} S={S} W={W} fp32: old {old_ms:.4f} ms, "
+              f"new {new_ms:.4f} ms (turns {fmt(raw)}), library none, bound "
+              f"{f_ms:.5f} ms ({f_by}); device time old "
+              f"{smoke.fmt_ms(dev_old)}, new {smoke.fmt_ms(dev_new)}; "
+              f"backward (da, db): old plain recompute {rec_ms:.4f} ms, new "
+              f"reverse {rev_ms:.4f} ms (turns {fmt(raw_bwd)}), device "
+              f"{smoke.fmt_ms(dev_rev)}, bound {b_ms:.5f} ms ({b_by}); "
+              "bitwise equal to the plain version both ways")
+        rows.append({"kernel": "rglru_scan", "shape": what, "B": B, "S": S,
+                     "W": W, "old_ms": old_ms, "new_ms": new_ms,
+                     "turns_ms": raw, "old_device_ms": dev_old,
+                     "new_device_ms": dev_new, "library_ms": None,
+                     "bound_ms": f_ms, "bound_by": f_by,
+                     "old_backward_ms": rec_ms, "new_backward_ms": rev_ms,
+                     "backward_turns_ms": raw_bwd,
+                     "new_backward_device_ms": dev_rev,
+                     "backward_bound_ms": b_ms, "backward_bound_by": b_by,
+                     "max_abs_err": 0.0})
+        del a, b, d_hs, hs
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def timed_backward(torch, fn_cls):
+    """Add the wall seconds spent in ``fn_cls.backward`` (the card
+    synchronised before and after each call) to the yielded list's
+    first entry."""
+    spent = [0.0]
+    orig = fn_cls.__dict__["backward"]
+
+    def backward(ctx, *grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig.__func__(ctx, *grads)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    fn_cls.backward = staticmethod(backward)
+    try:
+        yield spent
+    finally:
+        fn_cls.backward = orig
+
+
+def ab_grad_cell(torch, old, new, dev):
+    """recurrentgemma-9b's gradient cell with the parent's K4 module and
+    this tree's swapped into the model (``blocks.rglru_ops``) in turns:
+    one backward (``step.grads``) and one AdamW step each turn, peak
+    memory; then per version one backward with K4's backward timed apart
+    and one profiled step (idle share; the reverse kernel's share)."""
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import blocks, model_zoo
+    from repro_torch.train import optim, train_step
+    layers, B, S, dtype = smoke.GRAD_CELLS["recurrentgemma-9b"]
+    cfg = dataclasses.replace(cfgs.get_config("recurrentgemma-9b"),
+                              dtype=dtype, num_layers=layers)
+    model = model_zoo.build(cfg)
+    params = model.init_params(
+        torch.Generator(device=dev).manual_seed(smoke.SEED))
+    batch = smoke.train_batch(torch, cfg, B, S, dev)
+    step = train_step.make_train_step(
+        model, optim.AdamWConfig(lr=smoke.TRAIN_LR, warmup_steps=1))
+    state = {"params": params, "opt_state": optim.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    mods = {"old": old, "new": new}
+    res = {v: {"grads_s": [], "step_s": [], "peak_gb": []} for v in mods}
+    keep = blocks.rglru_ops
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    try:
+        blocks.rglru_ops = new
+        step(state, batch)                  # warm: allocator, cuBLAS
+        for v in ("old", "new", "new", "old"):
+            blocks.rglru_ops = mods[v]
+            torch.cuda.reset_peak_memory_stats()
+            res[v]["grads_s"].append(timed(lambda: step.grads(params, batch)))
+            res[v]["step_s"].append(timed(lambda: step(state, batch)))
+            res[v]["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        for v, mod in mods.items():
+            blocks.rglru_ops = mod
+            with timed_backward(torch, mod.RglruScanFn) as spent:
+                res[v]["grads_timed_s"] = timed(
+                    lambda: step.grads(params, batch))
+            res[v]["k4_backward_s"] = spent[0]
+            res[v]["idle"], res[v]["reverse_share"] = smoke.profile_step(
+                torch, f"recurrentgemma-9b train step, {v} K4",
+                lambda: step(state, batch), share_of="rglru_bwd_kernel")
+    finally:
+        blocks.rglru_ops = keep
+    for v, r in res.items():
+        print(f"ab grad cell recurrentgemma-9b {layers} layers B={B} S={S} "
+              f"{dtype}, {v} K4: one backward {fmt(r['grads_s'])} s, step "
+              f"{fmt(r['step_s'])} s, peak {fmt(r['peak_gb'])} GB; K4's "
+              f"backward {r['k4_backward_s']:.4f} s of a timed backward of "
+              f"{r['grads_timed_s']:.4f} s "
+              f"({r['k4_backward_s'] / r['grads_timed_s']:.4f}); idle share "
+              f"{r['idle']}, reverse kernel's share of the busy time "
+              f"{r['reverse_share']}")
+    del state, params
+    torch.cuda.empty_cache()
+    return [{"kernel": "rglru_scan", "shape": "grad cell recurrentgemma-9b",
+             "layers": layers, "B": B, "S": S, "dtype": dtype, **{
+                 f"{v}_{k}": x for v, r in res.items() for k, x in r.items()}}]
+
+
 AB = {"similarity_topk": ab_topk, "flash_attention": ab_flash,
-      "decode_attention": ab_decode, "rwkv6_scan": ab_rwkv}
+      "decode_attention": ab_decode, "rwkv6_scan": ab_rwkv,
+      "rglru_scan": ab_rglru}
 
 
 def main() -> int:
@@ -272,7 +445,12 @@ def main() -> int:
                     help="directory holding the parent's src/repro_torch")
     ap.add_argument("--out", type=Path, help="write the rows here (JSON)")
     ap.add_argument("--kernels", nargs="+", default=list(AB), choices=AB)
+    ap.add_argument("--grad-cell", action="store_true",
+                    help="also run recurrentgemma-9b's gradient cell with "
+                    "the old and the new K4 in turns")
     args = ap.parse_args()
+    if args.grad_cell and "rglru_scan" not in args.kernels:
+        args.kernels.append("rglru_scan")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -289,6 +467,9 @@ def main() -> int:
     rows = []
     for n in args.kernels:
         rows += AB[n](torch, old[n], new[n], dev)
+    if args.grad_cell:
+        rows += ab_grad_cell(torch, old["rglru_scan"], new["rglru_scan"],
+                             dev)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "rows": rows},
