@@ -52,8 +52,14 @@ encoder and the cross-attention, a decode step's one query included) and
 qwen2-vl-7b (16 patches before the text, M-RoPE; its SCORE and CLASSIFY
 raise as the JAX engine's do, and the script checks that they do) are
 served at full width and depth on the static path, with the same gates.
-Then the training phase: ``launch/train.py`` trains proxy-8b at full
-width (4 of its 32 layers) for a few steps with checkpoints, the last
+The dry-run phase follows the mesh phase: a few cells run both on meta
+through the dry-run and for real on a 1x1 NCCL mesh, held to equal
+counts and to the card's peak memory; ``launch/dryrun.py`` runs over a
+subset of the production-mesh cells on the host (no card) after the
+last timed phase, so it takes no host time from one.  Then the training
+phase: ``launch/train.py`` trains
+proxy-8b at full width (4 of its 32 layers) for a few steps with
+checkpoints, the last
 checkpoint is held to the trained state bit for bit, and a second run
 resumes from it; then one ``loss_fn`` backward of proxy-8b, of
 recurrentgemma-9b (one period and its tail, two microbatches), of
@@ -301,6 +307,49 @@ MESH_TRAIN_GRAD_REL = 1e-2
 MESH_TRAIN_DROP_REL = 2e-2
 # the mesh phase's processes must end within this many seconds
 MESH_RANK_TIMEOUT = 600
+
+# The dry-run phase.  (a) ``launch/dryrun.py`` in DRY_JOBS processes on
+# the host, started after the last timed phase (they would take host
+# time from the timed phases): DRY_SHAPES of every arch on the
+# single-pod mesh but DRY_LEFT_OUT, and proxy-8b's cells on both meshes;
+# they must end within DRY_TIMEOUT s of their start.  rwkv6-1.6b's
+# train_4k is left
+# out: K5's backward is the plain recompute, a Python loop over 4096
+# steps a layer, which the dry-run runs on meta as the card runs it
+# (835 s on one host core; its record is in results_torch/).  (b) On a 1x1 NCCL mesh, each cell of
+# DRY_CELLS run for real and through ``dryrun.run_cell`` on meta: FLOPs,
+# bytes, collectives and launches equal, and the dry-run's peak within
+# DRY_PEAK_REL (or DRY_PEAK_SLACK bytes, for the allocator's rounding and
+# the cuBLAS workspace) of the card's, both stated before the first
+# reading.  (arch, layers (None: all), (kind, seq_len, batch)); a decode
+# cell's cache holds seq_len - 1 tokens, so the step's K1 reads every slot
+DRY_SHAPES = ("decode_32k", "train_4k")
+DRY_LEFT_OUT = (("rwkv6-1.6b", "train_4k"),)
+# the processes of (a): name -> (arch list, shape or None: every cell on
+# both meshes); train_4k's archs split over four, by their trace times
+DRY_JOBS = {
+    "proxy-8b": (("proxy-8b",), None),
+    "decode_32k": (None, "decode_32k"),
+    "train_4k_a": (("qwen3-32b",), "train_4k"),
+    "train_4k_b": (("command-r-35b", "minitron-8b", "whisper-base"),
+                   "train_4k"),
+    "train_4k_c": (("recurrentgemma-9b", "stablelm-12b"), "train_4k"),
+    "train_4k_d": (("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
+                    "qwen2-vl-7b"), "train_4k"),
+}
+DRY_TIMEOUT = 400
+DRY_PEAK_REL = 0.10
+DRY_PEAK_SLACK = 64 << 20
+DRY_CELLS = (
+    ("proxy-8b", 4, ("decode", 4096, 8)),
+    ("proxy-8b", 4, ("prefill", 2048, 2)),
+    ("proxy-8b", 4, ("train", 512, 8)),
+    ("recurrentgemma-9b", 5, ("decode", 4096, 8)),      # a period + tail
+    ("recurrentgemma-9b", 5, ("prefill", 2048, 2)),
+    ("rwkv6-1.6b", None, ("decode", 4096, 8)),
+    ("rwkv6-1.6b", None, ("prefill", 2048, 2)),
+    ("qwen2-moe-a2.7b", None, ("prefill", 2048, 2)),
+)
 
 # each kernel's source and the TPU kernel it replaces
 KERNEL_FILES = {
@@ -3583,6 +3632,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        dry = {"tmp": tmp, "procs": {}}
+        try:
+            return phases(torch, card, dev, kind, dry)
+        finally:
+            for proc, log in dry["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+
+
+def phases(torch, card, dev, kind, dry) -> int:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
@@ -3625,6 +3688,8 @@ def main() -> int:
     #     mesh, then two gloo ranks on the card (sequence-sharded decode
     #     through K1, expert parallelism, a --model-parallel 2 train step)
     rows += mesh_path(torch, errs)
+    # 8c. the dry-run (b): cells on a 1x1 mesh, for real and on meta
+    dryrun_cells(torch)
     # 9-10. rwkv6-1.6b (K5), then recurrentgemma-9b (K4; K2, K1 at hd 256)
     rows += rwkv_path(torch, errs)
     rows += recurrentgemma_path(torch, errs)
@@ -3638,6 +3703,9 @@ def main() -> int:
     # 13. training: launch/train.py with a checkpoint and a resume, and
     #     gradients through K2, K4 and K5 against the plain path
     rows += train_path(torch, errs)
+    # 14. the dry-run (a): launch/dryrun.py on the production meshes, on
+    #     the host, after the last timed phase
+    dryrun_meshes(dry)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -4298,6 +4366,241 @@ def mesh_path(torch, errs):
     return [kernel_row("decode_attention", a["k1_launches"], err, t,
                        path="mesh: sharded chunk (a)",
                        shape=f"B={MESH_B} slots={MESH_SLOTS // 2} lse")]
+
+
+# ---------------------------------------------------------------------------
+# the dry-run phase
+# ---------------------------------------------------------------------------
+
+
+def dryrun_start(dry):
+    """(a) starts: ``python -m repro_torch.launch.dryrun`` in a process a
+    job of DRY_JOBS (each of DRY_SHAPES of every arch but DRY_LEFT_OUT on
+    the single-pod mesh, proxy-8b's cells on both meshes), on the host
+    (they see no card).  Fills ``dry["procs"]`` with {name: (process,
+    log file)} and ``dry["t0"]``; the JSON records go to ``dry["tmp"]``."""
+    import os
+    from repro_torch.configs import base as cfgs
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    for name, (archs, shape) in DRY_JOBS.items():
+        archs = archs or [a for a in cfgs.ARCH_IDS
+                          if (a, shape) not in DRY_LEFT_OUT]
+        args = ["--arch", ",".join(archs)]
+        if shape:
+            args += ["--shape", shape, "--single-pod-only"]
+        log = open(Path(dry["tmp"]) / f"{name}.log", "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--json", str(Path(dry["tmp"]) / f"{name}.json")],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        dry["procs"][name] = (proc, log)
+    dry["t0"] = time.perf_counter()
+
+
+def dryrun_wait(dry):
+    """(a) ends: each process's records, after it exited 0 within
+    DRY_TIMEOUT s of their start with every cell [OK]."""
+    t0 = dry["t0"]
+    recs = {}
+    for name, (proc, log) in dry["procs"].items():
+        left = max(1.0, DRY_TIMEOUT - (time.perf_counter() - t0))
+        try:
+            rc = proc.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            fail(f"dry-run (a) {name}: not done {DRY_TIMEOUT} s after its "
+                 "start")
+        log.seek(0)
+        text = log.read()
+        if rc != 0:
+            fail(f"dry-run (a) {name}: exit code {rc}:\n{text[-6000:]}")
+        path = Path(log.name).with_suffix(".json")
+        recs[name] = json.loads(path.read_text())
+        print(f"dry-run (a) {name}: {text.strip().splitlines()[-1]}, done "
+              f"by {time.perf_counter() - t0:.0f} s after its start")
+    return recs
+
+
+def dry_cell(arch, layers, kind, S, B):
+    import dataclasses
+    from repro_torch.configs import base as cfgs
+    cfg = cfgs.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, cfgs.ShapeSpec(f"{kind}_{S}_b{B}", S, B, kind)
+
+
+def dry_real_args(torch, cell, dev):
+    """The cell's arguments on the card, drawn from SEED and placed: full
+    prompts; a decode cache of zeros holding seq_len - 1 tokens."""
+    from repro_torch.train.train_step import init_state
+    cfg, shape = cell.model.cfg, cell.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        tok = torch.randint(3, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+        batch = {"tokens": tok, "labels": tok.clone(),
+                 "loss_mask": torch.ones((B, S), device=dev)}
+        return cell.place(init_state(cell.model, SEED, dev).tree(), batch)
+    params = cell.model.init_params(gen)
+    if shape.kind == "prefill":
+        batch = {"tokens": torch.randint(3, cfg.vocab_size, (B, S),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                 "lengths": torch.full((B,), S, dtype=torch.int32,
+                                       device=dev)}
+        return cell.place(params, batch)
+    cache = cell.zeros_cache(dev)
+    cache["len"].to_local().fill_(S - 1)
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (B, 1),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    from repro_torch.launch import sharding as shd
+    return (shd.distribute(cell.mesh, params, cell.in_specs[0]), cache,
+            shd.distribute(cell.mesh, batch, cell.in_specs[2]))
+
+
+def dry_meta_cells():
+    """(b) on meta: each cell of DRY_CELLS through ``dryrun.run_cell`` on
+    a 1x1 mesh of a fake world of one rank (before the NCCL world)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    dryrun.fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        return [dryrun.run_cell(*dry_cell(a, n, *c), mesh=mesh,
+                                grad_accum=1, verbose=False)
+                for a, n, c in DRY_CELLS]
+    finally:
+        dist.destroy_process_group()
+
+
+def dry_real_cells(torch, metas):
+    """(b) on the card: each cell of DRY_CELLS run once on a 1x1 NCCL mesh
+    under the counter (``roofline.analyze_cell``), held to its meta
+    record."""
+    import torch.distributed as dist
+    import tempfile
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    mods = train_kernels() | {"decode_attention": dec_ops}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        store = dist.FileStore(str(Path(tmp) / "nccl_store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=dev)
+        try:
+            mesh = make_host_mesh(model=1, device_type="cuda")
+            for (arch, n, c), meta in zip(DRY_CELLS, metas):
+                cfg, shape = dry_cell(arch, n, *c)
+                cell = steps.build_cell(cfg, shape, mesh, grad_accum=1)
+                args = dry_real_args(torch, cell, dev)
+                gc.collect()
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launches(mods)
+                t0 = time.perf_counter()
+                real = rl.analyze_cell(cell, *args).to_dict()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated() - before
+                launches = {k: v for k, v in launch_counts(mods).items()
+                            if v}
+                dry_hold(arch, n, shape, meta, real, launches, peak, ms,
+                         card)
+                del args, cell
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+
+def dry_hold(arch, n, shape, meta, real, launches, peak, ms, card):
+    """Print one pair (meta, card) and fail where they differ."""
+    what = (f"dry-run (b) {arch}{f' at {n} layers' if n else ''} "
+            f"{shape.kind} B={shape.global_batch} S={shape.seq_len}")
+    mm, mr = meta["memory_per_device"], real["memory_per_device"]
+    meta_l = meta["detail"]["kernel_launches"]
+    slack = max(DRY_PEAK_REL * peak, DRY_PEAK_SLACK)
+    print(f"{what}: FLOPs {meta['hlo_flops_per_dev']:.6g} meta / "
+          f"{real['hlo_flops_per_dev']:.6g} card, bytes "
+          f"{meta['hlo_bytes_per_dev']:.6g} / {real['hlo_bytes_per_dev']:.6g}"
+          f", collectives {meta['collectives']} / {real['collectives']}, "
+          f"launches {meta_l} / {launches}; arguments "
+          f"{mm['argument_bytes'] / 2**30:.3f} / "
+          f"{mr['argument_bytes'] / 2**30:.3f} GiB; peak above the "
+          f"arguments {mm['temp_bytes'] / 2**30:.3f} GiB dry-run, "
+          f"{peak / 2**30:.3f} GiB max_memory_allocated "
+          f"(gap {(mm['temp_bytes'] - peak) / 2**30:+.3f} GiB, allowed "
+          f"{slack / 2**30:.3f}); step {ms:.0f} ms under the counter; "
+          f"{card}")
+    for key in ("hlo_flops_per_dev", "hlo_bytes_per_dev", "collectives"):
+        if meta[key] != real[key]:
+            fail(f"{what}: {key} {meta[key]} on meta, {real[key]} on the "
+                 "card")
+    if mm["argument_bytes"] != mr["argument_bytes"]:
+        fail(f"{what}: arguments of {mm['argument_bytes']} bytes on meta, "
+             f"{mr['argument_bytes']} on the card")
+    if meta_l != launches or real["detail"]["kernel_launches"] != launches:
+        fail(f"{what}: launches {meta_l} on meta, {launches} on the card")
+    if abs(mm["temp_bytes"] - peak) > slack:
+        fail(f"{what}: the dry-run's peak above the arguments "
+             f"({mm['temp_bytes']} bytes) is not within {slack:.0f} bytes "
+             f"of the card's ({peak} bytes)")
+
+
+def dryrun_cells(torch):
+    """The dry-run phase's (b): DRY_CELLS on meta, then for real."""
+    t0 = time.perf_counter()
+    metas = dry_meta_cells()
+    dry_real_cells(torch, metas)
+    print(f"dry-run (b): {time.perf_counter() - t0:.1f} s; {card_line()}")
+
+
+def dryrun_meshes(dry):
+    """The dry-run phase's (a): its processes started, then each record
+    checked and printed."""
+    from repro_torch.configs import base as cfgs
+    dryrun_start(dry)
+    recs = dryrun_wait(dry)
+    for name, rs in recs.items():
+        for r in rs:
+            if r.get("skipped"):
+                print(f"dry-run (a) {r['arch']} x {r['shape']}: "
+                      f"{r['skipped']}")
+                continue
+            if not r.get("ok"):
+                fail(f"dry-run (a) {r['arch']} x {r['shape']}: "
+                     f"{r.get('error')}")
+            m = r["memory_per_device"]
+            print(f"dry-run (a) {r['arch']} x {r['shape']} x {r['mesh']}: "
+                  f"arguments {m['argument_bytes'] / 2**30:.2f} GiB, peak "
+                  f"{m['peak_bytes'] / 2**30:.2f} GiB "
+                  f"({'fits' if m['fits'] else 'does not fit'}), C "
+                  f"{r['t_compute_s'] * 1e3:.2f} ms M "
+                  f"{r['t_memory_s'] * 1e3:.2f} ms X "
+                  f"{r['t_collective_s'] * 1e3:.2f} ms ({r['bottleneck']}),"
+                  f" traced in {r['compile_s']:.1f} s")
+    for name, (archs, shape) in DRY_JOBS.items():
+        if shape is None:           # every cell (skips apart), two meshes
+            want = 2 * sum(len(cfgs.cells(a)) for a in archs)
+        else:
+            want = len(archs or [a for a in cfgs.ARCH_IDS
+                                 if (a, shape) not in DRY_LEFT_OUT])
+        got = sum(1 for r in recs[name] if r.get("ok")
+                  and not r.get("skipped"))
+        if got != want:
+            fail(f"dry-run (a) {name}: {got} cells traced, expected {want}")
+    print(f"dry-run (a): {time.perf_counter() - dry['t0']:.1f} s for "
+          f"{sum(len(r) for r in recs.values())} records in "
+          f"{len(DRY_JOBS)} processes")
 
 
 if __name__ == "__main__":

@@ -263,9 +263,22 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
+def all_configs() -> Tuple[ModelConfig, ...]:
+    """The configs of the JAX package's assigned architectures."""
+    return tuple(get_config(a) for a in ARCH_IDS)
+
+
 def cells(arch: str) -> Tuple[ShapeSpec, ...]:
     """The shape cells that apply to an arch: ``long_500k`` only for the
     sub-quadratic ones, as in the JAX package."""
     cfg = get_config(arch)
     return tuple(s for s in SHAPES
                  if s.name != "long_500k" or cfg.sub_quadratic)
+
+
+def skipped_cells(arch: str) -> Tuple[Tuple[ShapeSpec, str], ...]:
+    """The cells :func:`cells` leaves out, each with the JAX package's
+    reason: ``long_500k`` of a pure full-attention arch."""
+    cfg = get_config(arch)
+    return tuple((s, "skip(full-attn)") for s in SHAPES
+                 if s.name == "long_500k" and not cfg.sub_quadratic)

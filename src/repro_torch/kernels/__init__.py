@@ -13,7 +13,11 @@ WORK_HOOK: Optional[Callable[[str, float, float], None]] = None
 
 def report(name: str, work: Callable[[], tuple]) -> None:
     """Hand ``work()`` -> (flops, bytes) of one launch to the hook, if any
-    (``work`` runs only then: it may read the data)."""
+    (``work`` runs only then: it may read the data).  The ops ``work``
+    runs are outside every dispatch mode: counting them is no work of the
+    step."""
     if WORK_HOOK is not None:
-        flops, nbytes = work()
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            flops, nbytes = work()
         WORK_HOOK(name, float(flops), float(nbytes))

@@ -4,7 +4,9 @@ sequence-sharded decode of the mesh path.
 ``flash_decode`` dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version (``ref.py``); a CUDA tensor launches the hand-written
 kernel in ``csrc/decode_attention.cu``, or raises if it cannot be built or
-launched.  ``impl="reference"`` runs the plain version on any device; only
+launched; a meta tensor (the dry-run's) takes the kernel's meta route,
+which checks, allocates and reports the launch without running it.
+``impl="reference"`` runs the plain version on any device; only
 comparisons of the kernel against it pass that.  DTensors run on each
 rank's rows with the whole cache (``kernels.local``).
 
@@ -45,24 +47,20 @@ ERR_UNSUPPORTED = -1
 LAUNCHES = 0
 
 
-def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
-                          return_lse: bool = False):
-    """Launch the kernel.  q: [B,1,H,hd]; k_cache,v_cache: [B,Smax,KV,hd]
-    (model layout, read through strides); lengths: int [B].
-    Returns out [B,1,H,hd] (and lse [B,H,1] fp32)."""
-    global LAUNCHES
+def check(q, k_cache, v_cache):
+    """Raise where the kernel cannot take the inputs: the wrapper's checks
+    and the entry point's (which returns ERR_UNSUPPORTED on the card):
+    hd, the q heads a kv head, 16-byte aligned rows and bases (a base by
+    its storage offset: the allocator's blocks are aligned)."""
     B, _, H, hd = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    code = build.DTYPE_CODE.get(q.dtype)
-    if code is None:
+    KV = k_cache.shape[2]
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"decode attention takes bf16 or fp32, not {q.dtype}")
     if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
             or k_cache.shape[3] != hd or H % KV):
         raise ValueError(f"cache shapes {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    # Head dim, group size and 16-byte row alignment are checked by the
-    # entry point, which returns ERR_UNSUPPORTED.
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError(f"caches on {k_cache.device} / {v_cache.device}, "
                          f"q on {q.device}")
@@ -71,20 +69,49 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                         f"of {q.dtype}")
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("q, k_cache and v_cache need a contiguous last dim")
+    es = q.element_size()
+    rows = ((q, (0, 2)), (k_cache, (0, 1, 2)), (v_cache, (0, 1, 2)))
+    aligned = all((t.storage_offset() * es) % 16 == 0
+                  and all((t.stride(d) * es) % 16 == 0 for d in dims)
+                  for t, dims in rows)
+    if hd not in HEAD_DIMS or H // KV not in GROUPS or not aligned:
+        raise ValueError(f"decode attention kernel takes hd in {HEAD_DIMS}, "
+                         f"H/KV in {GROUPS.start}..{GROUPS.stop - 1} and "
+                         f"16-byte aligned rows; got hd={hd}, H={H}, KV={KV}")
+
+
+def _prepare(q, k_cache, v_cache, lengths, return_lse):
+    """Checks, then the launch's int32 lengths and its outputs (out, lse)
+    on q's device."""
+    check(q, k_cache, v_cache)
+    B, _, H, hd = q.shape
     if not (lengths.dtype == torch.int32 and lengths.device == q.device
             and lengths.is_contiguous()):
         lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, 1), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    return lengths, out, lse
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
+                          return_lse: bool = False):
+    """Launch the kernel.  q: [B,1,H,hd]; k_cache,v_cache: [B,Smax,KV,hd]
+    (model layout, read through strides); lengths: int [B].
+    Returns out [B,1,H,hd] (and lse [B,H,1] fp32)."""
+    global LAUNCHES
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    lengths, out, lse = _prepare(q, k_cache, v_cache, lengths, return_lse)
     strides = _pack_strides(q.stride(0), q.stride(2), *k_cache.stride()[:3],
                             *v_cache.stride()[:3], out.stride(0),
                             out.stride(2))
     err = LIB.load().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None, code, B, H, KV, Smax,
-        hd, strides, hd ** -0.5, build.stream_ptr(q.device))
+        lse.data_ptr() if lse is not None else None,
+        build.DTYPE_CODE[q.dtype], B, H, KV, Smax, hd, strides, hd ** -0.5,
+        build.stream_ptr(q.device))
     if err == ERR_UNSUPPORTED:
         raise ValueError(f"decode attention kernel takes hd in {HEAD_DIMS}, "
                          f"H/KV in {GROUPS.start}..{GROUPS.stop - 1} and "
@@ -95,13 +122,25 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     return (out, lse) if return_lse else out
 
 
+def decode_attention_meta(q, k_cache, v_cache, lengths, *,
+                          return_lse: bool = False):
+    """The kernel's meta route (a dry-run on meta tensors): the launch's
+    checks and allocations, its work reported over full lengths (a meta
+    tensor has no data), and no launch; ``LAUNCHES`` is left alone."""
+    lengths, out, lse = _prepare(q, k_cache, v_cache, lengths, return_lse)
+    report("decode_attention", lambda: work(q, k_cache, None, return_lse))
+    return (out, lse) if return_lse else out
+
+
 def work(q, k_cache, lengths, return_lse: bool = False):
-    """(FLOPs, bytes) of one launch over the valid keys: q.k and p.v;
-    q, the valid K and V rows and lengths read, out (and lse) written."""
+    """(FLOPs, bytes) of one launch over the valid keys (every slot where
+    ``lengths`` is None): q.k and p.v; q, the valid K and V rows and
+    lengths read, out (and lse) written."""
     B, _, H, hd = q.shape
-    KV = k_cache.shape[2]
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
     es = q.element_size()
-    keys = int(lengths.clamp(0, k_cache.shape[1]).sum())
+    keys = (B * Smax if lengths is None
+            else int(lengths.clamp(0, Smax).sum()))
     return (4.0 * keys * H * hd,
             2 * B * H * hd * es + 2 * keys * KV * hd * es + 4 * B
             + (4 * B * H if return_lse else 0))
@@ -121,9 +160,9 @@ def flash_decode(q, k_cache, v_cache, lengths, *, impl: str = "auto",
             lambda *t: flash_decode(*t, impl=impl, return_lse=return_lse),
             (q, k_cache, v_cache, lengths), (d, d, d, ("dp",)),
             (d, ("dp", None, None)) if return_lse else d)
-    if impl == "auto" and q.is_cuda:
-        return decode_attention_cuda(q, k_cache, v_cache, lengths,
-                                     return_lse=return_lse)
+    if impl == "auto" and (q.is_cuda or q.is_meta):
+        launch = decode_attention_cuda if q.is_cuda else decode_attention_meta
+        return launch(q, k_cache, v_cache, lengths, return_lse=return_lse)
     kc = k_cache.transpose(1, 2)                   # [B,KV,Smax,hd]
     vc = v_cache.transpose(1, 2)
     if return_lse:
@@ -276,8 +315,19 @@ def write_kv_sharded(cache_k, cache_v, k_new, v_new, start, *, mesh,
     st = _local(start, mesh, (bs,)).long()
     chunk = ck.shape[1]
     loc = st - mesh.get_local_rank(seq_axis) * chunk          # [B]
-    ok = (loc >= 0) & (loc < chunk)
-    b = torch.arange(ck.shape[0], device=ck.device)[ok]
-    ck[b, loc[ok]] = kn[ok, 0].to(ck.dtype)
-    cv[b, loc[ok]] = vn[ok, 0].to(cv.dtype)
+    write_rows_owned(ck, cv, kn, vn, loc)
     return cache_k, cache_v
+
+
+def write_rows_owned(ck, cv, kn, vn, loc):
+    """ck/cv [B,chunk,KV,hd] take kn/vn [B,1,KV,hd] at local positions
+    loc [B] where 0 <= loc < chunk; a row whose position lies outside
+    writes its slot loc clamped into the chunk back with its own value.
+    Integer indices only: no ``nonzero`` (a host sync on the card, and no
+    meta kernel), so the same code runs on meta tensors."""
+    chunk = ck.shape[1]
+    ok = ((loc >= 0) & (loc < chunk))[:, None, None]          # [B,1,1]
+    at = loc.clamp(0, chunk - 1)
+    b = torch.arange(ck.shape[0], device=ck.device)
+    for c, n in ((ck, kn), (cv, vn)):
+        c[b, at] = torch.where(ok, n[:, 0].to(c.dtype), c[b, at])

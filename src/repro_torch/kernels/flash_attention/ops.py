@@ -3,10 +3,12 @@
 ``flash_attention`` dispatches on the tensor's device: a CPU tensor takes
 the plain PyTorch version (``ref.py``); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu``, or raises if it cannot
-be built or launched.  ``impl="reference"`` runs the plain version on any
-device; only comparisons of the kernel against it pass that.
+be built or launched; a meta tensor (the dry-run's) takes the kernel's
+meta route, which checks, allocates and reports the launch without
+running it.  ``impl="reference"`` runs the plain version on any device;
+only comparisons of the kernel against it pass that.
 
-Where q, k or v requires grad, a CUDA tensor goes through
+Where q, k or v requires grad, a CUDA or meta tensor goes through
 :class:`FlashAttentionFn`: the kernel forward, and a backward that
 recomputes the plain version over blocks of ``BACKWARD_ROWS`` query rows
 with the forward's mask, window, scale and query offset.
@@ -43,10 +45,17 @@ BACKWARD_ROWS = 1024
 LAUNCHES = 0
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the kernel.  q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] (read
-    through strides) -> [B,Sq,H,hd]."""
-    global LAUNCHES
+def block_rows(hd: int) -> int:
+    """Rows (position, head) of a unit of the bf16 kernel: BM."""
+    return 64 if hd > 128 else 128
+
+
+def check(q, k, v):
+    """Raise where the kernel cannot take the inputs: the wrapper's checks
+    and, for bf16, the entry point's (which returns ERR_UNSUPPORTED on the
+    card): at most BM q heads a kv head, and strides and bases TMA can
+    read, 16-byte multiples (a base by its storage offset: the
+    allocator's blocks are aligned)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if q.dtype not in build.DTYPE_CODE:
@@ -59,9 +68,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f"do not match q {tuple(q.shape)}")
     if Sq == 0 or Skv == 0:
         raise ValueError("flash attention needs Sq > 0 and Skv > 0")
-    # The bf16 kernel's TMA rule (16-byte strides and base) is checked
-    # where the tensor maps are made, in the entry point, which returns
-    # ERR_UNSUPPORTED; the fp32 kernel reads elements one by one.
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -69,6 +75,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             raise TypeError(f"{name}: dtype {t.dtype}, q has {q.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: last dim must be contiguous")
+    if q.dtype == torch.bfloat16 and (H // KV > block_rows(hd) or not all(
+            (t.storage_offset() * 2) % 16 == 0
+            and all((st * 2) % 16 == 0 for st in t.stride()[:3])
+            for t in (q, k, v))):
+        raise ValueError(f"the bf16 flash attention kernel cannot take "
+                         f"H / KV = {H // KV} q heads a kv head at hd {hd}, "
+                         f"or TMA cannot read the strides of q, k, v or out")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+    """Launch the kernel.  q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] (read
+    through strides) -> [B,Sq,H,hd]."""
+    global LAUNCHES
+    check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = _pack_strides(*q.stride()[:3], *k.stride()[:3],
                             *v.stride()[:3], *out.stride()[:3])
@@ -83,6 +105,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f"or TMA cannot read the strides of q, k, v or out")
     build.check(err, "flash_attention")
     LAUNCHES += 1
+    report("flash_attention", lambda: work(q, k, causal, window))
+    return out
+
+
+def flash_attention_meta(q, k, v, *, causal: bool = True, window: int = 0):
+    """The kernel's meta route (a dry-run on meta tensors): the launch's
+    checks and output, its work reported, and no launch; ``LAUNCHES`` is
+    left alone."""
+    check(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     report("flash_attention", lambda: work(q, k, causal, window))
     return out
 
@@ -161,22 +193,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     q position i sits at kv position i + Skv - Sq.  impl: "auto" (the
     kernel on CUDA, the plain version on CPU) or "reference" (the plain
-    version).  DTensors run on each rank's rows (``kernels.local``).
+    version).  DTensors run on each rank's rows, and on its heads where q's
+    and k's heads both divide ``model`` (``kernels.local``): rank r's q
+    heads must read rank r's kv heads in order.
     """
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl {impl!r}")
-    if local.is_dtensor(q):          # each rank: its rows, every head
-        d = ("dp", None, None, None)
+    if local.is_dtensor(q):          # each rank: its rows and heads
+        d = ("dp", None, "tp", None)
         return local.run_local(
             lambda *t: flash_attention(*t, causal=causal, window=window,
                                        impl=impl), (q, k, v), (d, d, d), d)
-    if impl == "auto" and q.is_cuda:
+    if impl == "auto" and (q.is_cuda or q.is_meta):
+        launch = flash_attention_cuda if q.is_cuda else flash_attention_meta
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttentionFn.apply(
-                flash_attention_cuda, q, k, v, causal, window,
-                sm_scale_of(q.shape[-1]), BACKWARD_ROWS)
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+                launch, q, k, v, causal, window, sm_scale_of(q.shape[-1]),
+                BACKWARD_ROWS)
+        return launch(q, k, v, causal=causal, window=window)
     out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window)
     return out.transpose(1, 2)

@@ -4,8 +4,16 @@ A mesh is a ``torch.distributed`` ``DeviceMesh`` with the axes
 ``("data", "model")`` over the world of the process group the caller has
 initialised (``torch.distributed.init_process_group``; nothing here starts
 one).  ``data`` is data parallelism and FSDP, ``model`` tensor, expert and
-sequence parallelism, as in the JAX package.  The production mesh (the
-JAX package's ``make_production_mesh``) is not ported yet.
+sequence parallelism, as in the JAX package.
+
+The production mesh (:func:`make_production_mesh`) keeps the JAX
+package's card counts, 256 a pod, as H100s: ``model`` defaults to 8, the
+cards of one H100 node on NVLink, so tensor and expert parallelism and
+the sequence-sharded decode's combines stay inside a node, and ``data``
+and ``pod`` cross nodes over InfiniBand (``launch/roofline``);
+``model=16`` gives the JAX package's TPU layout, (16, 16) and
+(2, 16, 16).  The dry-run (``launch/dryrun``) builds it over a fake
+process group of 256 or 512 ranks.
 
 gloo with CUDA tensors (ranks that share a card): gloo's asynchronous
 functional collectives, which DTensor's redistributions use, crash on
@@ -24,6 +32,39 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.launch import sharding
+
+
+POD_CARDS = 256         # cards a pod, the JAX package's production count
+
+
+def production_shape(*, multi_pod: bool = False, model: int = 8):
+    """(shape, axis names) of the production mesh."""
+    if model < 1 or POD_CARDS % model:
+        raise ValueError(f"model axis {model} does not divide a pod of "
+                         f"{POD_CARDS} cards")
+    if multi_pod:
+        return (2, POD_CARDS // model, model), ("pod", "data", "model")
+    return (POD_CARDS // model, model), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, model: int = 8,
+                         device_type: str = "cuda"):
+    """The production mesh over the initialised world: ``("data",
+    "model")`` = (256 // model, model) on one pod, ``("pod", "data",
+    "model")`` = (2, 256 // model, model) on two.  Raises unless the world
+    has exactly that many ranks."""
+    shape, names = production_shape(multi_pod=multi_pod, model=model)
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised "
+                           "process group (torch.distributed."
+                           "init_process_group)")
+    n = 1
+    for d in shape:
+        n *= d
+    if dist.get_world_size() != n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks; "
+                         f"the world has {dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def make_host_mesh(*, model: int = 1, device_type: str = "cuda"):

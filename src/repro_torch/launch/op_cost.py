@@ -12,15 +12,33 @@ PyTorch has no such artifact; :class:`OpCounter`, a
     nothing, and allocations count none).  Every op boundary counts, so
     this is an upper bound on HBM traffic that XLA's fusion would lower:
     it is not comparable with the JAX package's bytes;
-  * collectives (the functional and the c10d ops, on DTensors or not):
-    wire bytes by :func:`_wire_bytes`, the JAX package's ring formulas,
-    over the group the op runs on.
+  * collectives (the functional and the c10d ops): wire bytes by
+    :func:`_wire_bytes`, the JAX package's ring formulas, over the group
+    the op runs on, and by mesh axis where the counter knows the mesh.
+
+On a mesh the counter counts this rank's work, as XLA's per-partition
+module does.  An op on DTensors reaches the mode at the DTensor level,
+with global shapes; the counter steps aside (``NotImplemented``), so
+DTensor runs it on the local shards, redistributing first, and the
+counter sees those local ops and collectives.  DTensor also runs each op
+once on fake tensors of the global shapes to learn the output's metadata
+(its sharding propagation); an op on ``FakeTensor`` objects is that, not
+work, and counts nothing.  The local shards may be real or meta tensors (the
+dry-run's): both count alike.
+
+The counter also keeps a live-bytes tally: each new
+storage an op's output holds (not one of its inputs', so views and
+in-place ops add nothing) counts from its first op until it is freed,
+rounded up to the 512-byte blocks of the CUDA caching allocator;
+``OpCost.peak_bytes`` is the tally's maximum.  Storages that existed when
+the counter started (the step's arguments) are not in it.
 
 The hand-written kernels launch through ctypes, below the dispatcher;
 each wrapper reports its own launch's work (``kernels.report``, the
 formulas of ``chip_smoke.py``'s bounds), which the counter takes in while
-it is active.  ``flops_by_path`` tags dots ``dot`` and each kernel's work
-by the kernel's name.
+it is active; so does a kernel's meta route in a dry-run.
+``flops_by_path`` tags dots ``dot`` and each kernel's work by the
+kernel's name.
 """
 from __future__ import annotations
 
@@ -95,8 +113,15 @@ class OpCost:
     collective_bytes: float = 0.0    # wire bytes per device
     collective_counts: Dict[str, int] = dataclasses.field(
         default_factory=dict)
+    # wire bytes by mesh axis ("other" for a group of no axis of the mesh)
+    collective_by_axis: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    # wire bytes by "<kind>@<axis>"
+    collective_by_path: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
     flops_by_path: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    peak_bytes: float = 0.0          # live-bytes tally's maximum
 
     @property
     def dot_flops(self) -> float:
@@ -117,24 +142,27 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _group_size(args, kwargs) -> int:
-    """The size of the process group a collective runs on: a group name
-    (functional collectives) or a ProcessGroup (c10d ops)."""
+def _group_of(args, kwargs):
+    """(name, size) of the process group a collective runs on: a group
+    name (functional collectives) or a ProcessGroup (c10d ops, which
+    reach the dispatcher boxed in a ``ScriptObject``)."""
     import torch.distributed as dist
     for a in list(args) + list((kwargs or {}).values()):
+        if isinstance(a, torch.ScriptObject) and a._type().qualified_name(
+                ).endswith("c10d.ProcessGroup"):
+            a = dist.ProcessGroup.unbox(a)
         if isinstance(a, str):
             try:
                 from torch.distributed.distributed_c10d import \
                     _resolve_process_group
-                return _resolve_process_group(a).size()
+                return a, _resolve_process_group(a).size()
             except Exception:       # not a group name: another str arg
                 continue
-        if isinstance(a, dist.ProcessGroup):
-            return a.size()
-        size = getattr(a, "size", None)
-        if callable(size) and type(a).__name__.endswith("ProcessGroup"):
-            return a.size()
-    return dist.get_world_size() if dist.is_initialized() else 1
+        if isinstance(a, dist.ProcessGroup) or (
+                callable(getattr(a, "size", None))
+                and type(a).__name__.endswith("ProcessGroup")):
+            return getattr(a, "group_name", None), a.size()
+    return None, dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _dot_flops(name, args) -> float:
@@ -145,14 +173,28 @@ def _dot_flops(name, args) -> float:
     return 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
 
 
+BLOCK = 512          # the CUDA caching allocator's block granularity
+
+
+def _block_bytes(n: int) -> int:
+    return -(-n // BLOCK) * BLOCK
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the ops dispatched (and the kernels launched) inside its
-    ``with`` block into ``self.cost``."""
+    ``with`` block into ``self.cost``, as this rank's work.  ``mesh`` (a
+    ``DeviceMesh``) names the axis of each collective's group."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
         self.cost = OpCost()
         self._prev_hook = None
+        self._axis_of = {}
+        if mesh is not None:
+            for a in mesh.mesh_dim_names:
+                self._axis_of[mesh.get_group(a).group_name] = a
+        self._live = 0
+        self._held = {}          # id(storage) -> weakref to it
 
     def __enter__(self):
         self._prev_hook = kernels.WORK_HOOK
@@ -171,14 +213,38 @@ class OpCounter(TorchDispatchMode):
         c.kernel_launches[name] = c.kernel_launches.get(name, 0) + 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # counted on the local shards
         out = func(*args, **(kwargs or {}))
-        self._count(func, args, kwargs, out)
+        ins, outs = _tensors(args), _tensors(out)
+        if not _is_fake(ins + outs):
+            self._hold(ins, outs)
+            self._count(func, args, kwargs, ins, outs)
         return out
 
-    def _count(self, func, args, kwargs, out) -> None:
+    def _hold(self, ins, outs) -> None:
+        import weakref
+        seen = {id(_storage(t)) for t in ins}
+        for t in outs:
+            st = _storage(t)
+            key = id(st)
+            if st is None or key in seen or key in self._held:
+                continue
+            seen.add(key)
+            n = _block_bytes(st.nbytes())
+            self._held[key] = weakref.ref(st, lambda _, k=key, n=n:
+                                          self._free(k, n))
+            self._live += n
+            self.cost.peak_bytes = max(self.cost.peak_bytes, self._live)
+
+    def _free(self, key, n) -> None:
+        self._held.pop(key, None)
+        self._live -= n
+
+    def _count(self, func, args, kwargs, ins, outs) -> None:
         c = self.cost
         name = func._schema.name.split("::")[-1]
-        ins, outs = _tensors(args), _tensors(out)
         kind = _COLLECTIVE_OPS.get(name)
         if kind is not None:
             rbytes = _nbytes(outs) if name not in ("allreduce_",) else \
@@ -186,9 +252,16 @@ class OpCounter(TorchDispatchMode):
             ob = _nbytes(ins)
             if name.endswith("_"):               # c10d ops: in place
                 rbytes = ob if kind != "all-gather" else _nbytes(outs)
-            c.collective_bytes += _wire_bytes(kind, rbytes, ob,
-                                              _group_size(args, kwargs))
+            group, size = _group_of(args, kwargs)
+            wire = _wire_bytes(kind, rbytes, ob, size)
+            axis = self._axis_of.get(group, "other")
+            c.collective_bytes += wire
             c.collective_counts[kind] = c.collective_counts.get(kind, 0) + 1
+            c.collective_by_axis[axis] = c.collective_by_axis.get(
+                axis, 0.0) + wire
+            path = f"{kind}@{axis}"
+            c.collective_by_path[path] = c.collective_by_path.get(
+                path, 0.0) + wire
             return
         if name in _NO_TRAFFIC or not outs:
             return
@@ -205,9 +278,21 @@ class OpCounter(TorchDispatchMode):
         c.bytes += _nbytes(ins) + _nbytes(outs)
 
 
-def count(fn, *args, **kwargs):
+def _storage(t):
+    try:
+        return t.untyped_storage()
+    except (RuntimeError, NotImplementedError):   # a tensor with none
+        return None
+
+
+def _is_fake(ts) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in ts)
+
+
+def count(fn, *args, mesh=None, **kwargs):
     """Run ``fn(*args, **kwargs)`` under an :class:`OpCounter`: returns
     (its result, the :class:`OpCost`)."""
-    with OpCounter() as counter:
+    with OpCounter(mesh=mesh) as counter:
         out = fn(*args, **kwargs)
     return out, counter.cost

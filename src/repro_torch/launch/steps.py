@@ -79,7 +79,7 @@ def placed_zeros(mesh, meta_tree, specs, device):
         return DTensor.from_local(
             torch.zeros(tuple(shape), dtype=t.dtype, device=device), mesh,
             pl, run_check=False, shape=tuple(t.shape),
-            stride=torch.empty(tuple(t.shape), device="meta").stride())
+            stride=_contiguous_stride(tuple(t.shape)))
 
     def walk(t, s):
         if isinstance(t, dict):
@@ -88,6 +88,16 @@ def placed_zeros(mesh, meta_tree, specs, device):
             return [walk(v, si) for v, si in zip(t, s)]
         return one(t, s)
     return walk(meta_tree, specs)
+
+
+def _contiguous_stride(shape):
+    """The strides of a contiguous tensor of ``shape`` (nothing made: a
+    dry-run counts every tensor its step makes)."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
 
 
 def _full(x):

@@ -25,8 +25,10 @@ K1 over the layer's ring buffer of the last W tokens
 On the mesh path (``models/shardctx`` armed, DTensor activations) the
 pins of the JAX package's ``_attn_block`` hold: q, k and v go to the
 attention with their batch over the data axes and replicated over
-``model`` (attention is not head-sharded), and the output comes back
-head-sharded over ``model``.  The kernels run on each rank's rows
+``model``, and the output comes back head-sharded over ``model``.  XLA
+partitions that attention by its output's heads, so a full-sequence pass
+here runs K2 on each rank's heads (:func:`_head_parallel`); a decode step
+runs K1 on every head.  The kernels run on each rank's rows and heads
 (``kernels.local``).  A single-token decode against a cache whose
 sequence axis is sharded over ``model`` writes into the owning rank and
 runs K1 on each rank's chunk, combined by logsumexp
@@ -132,6 +134,30 @@ def _pinned(q, k, v):
             shardctx.constrain(v, "dp", None, None, None))
 
 
+def _head_parallel(q, k, v):
+    """q, k, v for attention parallel over heads on ``model``, as XLA
+    partitions the JAX package's pinned attention by its head-sharded
+    output: q's heads sharded over ``model``, and k, v gathered so that
+    each rank's slice holds the kv heads its q heads read (their GQA
+    groups in order; a kv head repeats where ranks split its group: an
+    expand, whose backward is a sum, where a gather's backward would need
+    ``index_add``, which DTensor lacks in some torch versions).
+    Where the heads do not divide ``model``, or a rank's share would cut
+    groups unevenly, the pins of ``_pinned`` (every head on every rank)."""
+    tp = shardctx.tp_size()
+    H, KV = q.shape[2], k.shape[2]
+    G, Hl = H // KV, H // tp
+    if tp == 1 or H % tp or not (Hl % G == 0 or G % Hl == 0):
+        return _pinned(q, k, v)
+    if Hl < G:                  # G / Hl ranks share each kv head: repeat it
+        B, Skv, _, hd = k.shape
+        R = G // Hl
+        k, v = (t.unsqueeze(3).expand(B, Skv, KV, R, hd).reshape(
+            B, Skv, KV * R, hd) for t in (k, v))
+    return tuple(shardctx.constrain(t, "dp", None, "tp", None)
+                 for t in (q, k, v))
+
+
 def causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024,
                      causal: bool = True):
     """Attention over full sequences.
@@ -143,8 +169,9 @@ def causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024,
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     if shardctx.is_dtensor(q):          # the kernel (plain on CPU) a rank
-        out = flash_ops.flash_attention(*_pinned(q, k, v), causal=causal,
-                                        window=window, impl=_FLASH_IMPL)
+        out = flash_ops.flash_attention(*_head_parallel(q, k, v),
+                                        causal=causal, window=window,
+                                        impl=_FLASH_IMPL)
         return shardctx.constrain(out, "dp", None, "tp", None)
     if q.is_cuda:
         return flash_ops.flash_attention(q, k, v, causal=causal,

@@ -116,6 +116,20 @@ def split_heads(y, n: int, hd: int):
     return y.reshape(B, S, n, hd)
 
 
+def merge_heads(o):
+    """Attention heads o [B, S, H, hd] as [B, S, H*hd], the output
+    projection's input.  On the mesh, where H does not divide ``model``
+    (the heads are replicated there), the gradient that comes back from
+    the head-sharded projection is made replicated before it reaches the
+    view: a view cannot cut a head (DTensor refuses to unflatten an
+    uneven shard)."""
+    B, S, H, hd = o.shape
+    y = o.reshape(B, S, H * hd)
+    if shardctx.is_dtensor(y) and H % shardctx.tp_size():
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
 def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
     hd = cfg.head_dim
     q = split_heads(linear(x, params["wq"], params.get("bq")),
@@ -154,14 +168,41 @@ def _padded_heads(cfg: cfgs.ModelConfig) -> int:
     return Hp
 
 
+def _pad_heads(q, n: int):
+    """q [B, S, H, hd] with n zero heads after its H.  A DTensor q holds
+    every head on each rank (H does not divide ``model``), so each rank
+    pads its own shard (DTensor's pad fails in some torch versions)."""
+    if not shardctx.is_dtensor(q):
+        return F.pad(q, (0, 0, 0, n))
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(F.pad(q.to_local(), (0, 0, 0, n)),
+                              q.device_mesh, q.placements, run_check=False)
+
+
+def _pad_rows(w, n: int):
+    """w [R, D] with n zero rows after its R.  A DTensor w is gathered to
+    whole rows first, padded on each rank and placed as it was (the
+    padded rows divide ``model``), since DTensor's pad of a split dim
+    fails in some torch versions."""
+    if not shardctx.is_dtensor(w):
+        return F.pad(w, (0, 0, 0, n))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = w.device_mesh, tuple(w.placements)
+    whole = [Replicate() if p == Shard(0) else p for p in pl]
+    w = w.redistribute(mesh, whole)
+    w = DTensor.from_local(F.pad(w.to_local(), (0, 0, 0, n)), mesh, whole,
+                           run_check=False)
+    return w.redistribute(mesh, pl)
+
+
 def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
     cfg = ctx.cfg
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg, ctx.positions)
     Hp = _padded_heads(cfg)
     if Hp != cfg.num_heads:
-        q = F.pad(q, (0, 0, 0, Hp - cfg.num_heads))
-        q = shardctx.constrain(q, "dp", None, "tp", None)
+        q = shardctx.constrain(_pad_heads(q, Hp - cfg.num_heads),
+                               "dp", None, "tp", None)
     new_cache = ctx.cache
     if ctx.mode == "decode":
         if window:
@@ -191,10 +232,10 @@ def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
             else:
                 write_prefix(ck, k)
                 write_prefix(cv, v)
-    out = out.reshape(B, S, Hp * cfg.head_dim)
+    out = merge_heads(out)
     wo = params["wo"]
     if Hp != cfg.num_heads:                 # zero rows for padded heads
-        wo = F.pad(wo, (0, 0, 0, (Hp - cfg.num_heads) * cfg.head_dim))
+        wo = _pad_rows(wo, (Hp - cfg.num_heads) * cfg.head_dim)
     return linear(out, wo, params.get("bo")), new_cache
 
 
@@ -402,10 +443,16 @@ def moe_apply(params, x, ctx: Ctx):
     axes = _ep_axes(ctx, B * S, m.padded_num_experts)
     if axes is not None and shardctx.is_dtensor(x2d):
         y2d, aux = _moe_ep(params, x2d, m, ctx.mode, axes)
+        if tuple(y2d.placements) != tuple(x2d.placements):
+            # the tokens split over the data axes where the batch does not
+            # (B below their size): back to x's placement before the view
+            y2d = y2d.redistribute(x2d.device_mesh, x2d.placements)
     else:
+        mesh = None
         if shardctx.is_dtensor(x2d):
             # no expert parallelism: every rank routes every token
             # through every expert on full values
+            mesh = x2d.device_mesh
             x2d = x2d.full_tensor()
             params = {k: v for k, v in params.items()}
             params["router"] = {"w": params["router"]["w"].full_tensor()}
@@ -415,6 +462,13 @@ def moe_apply(params, x, ctx: Ctx):
         cap = _capacity(m, x2d.shape[0], ctx.mode)
         e = params["experts"]
         y2d = _moe_local(x2d, gates, e["wi"], e["wg"], e["wo"], cap)
+        if mesh is not None:
+            # back on the mesh, replicated: their gradients then come back
+            # as the plain tensors the full values are
+            from torch.distributed.tensor import DTensor, Replicate
+            y2d, aux = (DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                           run_check=False)
+                        for t in (y2d, aux))
     y = y2d.reshape(B, S, D).to(x.dtype)
     if m.num_shared_experts:
         y = y + apply_mlp(params["shared"], x)
@@ -461,7 +515,9 @@ def _rglru_coeffs(params, u):
     uf = u.float()
     i_gate = torch.sigmoid(uf * params["i_gate_w"] + params["i_gate_b"])
     r_gate = torch.sigmoid(uf * params["r_gate_w"] + params["r_gate_b"])
-    log_a_base = F.logsigmoid(params["a_param"])              # [W]
+    # log sigmoid as -softplus(-x), JAX's ``log_sigmoid``: DTensor has a
+    # sharding rule for softplus and its backward, none for log_sigmoid's
+    log_a_base = -F.softplus(-params["a_param"])              # [W]
     log_a = _RG_C * r_gate * log_a_base                       # [...,W] (<0)
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -718,7 +774,7 @@ def block_apply(blk: str, params, x, ctx: Ctx):
         a_out, new_cache = attn_apply(params["attn"], h1, ctx, window=window)
         if cfg.parallel_block:
             m_out, aux = _ffn(params, h1, ctx)
-            return x + a_out + m_out, new_cache, aux
+            return _carry(x + a_out + m_out, ctx), new_cache, aux
     elif blk == cfgs.RGLRU:
         h1 = apply_norm(params["ln1"], x, cfg.norm_eps)
         a_out, new_cache = rglru_apply(params["rec"], h1, ctx)
@@ -728,7 +784,18 @@ def block_apply(blk: str, params, x, ctx: Ctx):
         return y, new_cache, 0.0
     else:
         raise ValueError(f"unknown block {blk!r}")
-    x = x + a_out
+    x = _carry(x + a_out, ctx)
     h2 = apply_norm(params["ln2"], x, cfg.norm_eps)
     m_out, aux = _ffn(params, h2, ctx)
-    return x + m_out, new_cache, aux
+    return _carry(x + m_out, ctx), new_cache, aux
+
+
+def _carry(x, ctx: Ctx):
+    """Pin the residual stream as the layer carry is pinned (batch on the
+    data axes, replicated over ``model`` unless sequence parallelism puts
+    the sequence there): the head- and hidden-sharded projections then
+    keep their weights in place and reduce their outputs, the Megatron
+    layout XLA picks for the JAX package, where DTensor alone may gather
+    the weights instead."""
+    return shardctx.constrain(x, "dp", "sp" if ctx.mode == "train" else None,
+                              None)

@@ -89,6 +89,61 @@ def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def lookup(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``w[ids]`` of a table w [V, D].
+
+    On the mesh (w a DTensor) each rank looks up its own ids in the table
+    gathered to whole rows over every axis but ``model``; where ``model``
+    splits the vocabulary, a rank's rows are its slice, ids outside it
+    give zeros, and the partial results are summed over ``model`` when
+    the output is next redistributed (Megatron's vocab-parallel
+    embedding, the partitioning XLA gives the JAX package's gather).  The
+    output keeps the ids' placements on the other axes.  DTensor's own
+    rule for the gather fails on ids whose batch is split over two axes
+    (the multi-pod mesh) in some torch versions."""
+    if not (hasattr(w, "device_mesh") and hasattr(w, "placements")):
+        return w[ids.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    split = [n == "model" and p == Shard(0)
+             for n, p in zip(names, w.placements)]
+    want = [Shard(0) if s else Replicate() for s in split]
+    # each rank's gradient of the gathered table is its own ids' part
+    grads = [Shard(0) if s else Partial() for s in split]
+    wl = w.redistribute(mesh, want).to_local(grad_placements=grads)
+    if isinstance(ids, DTensor):
+        ids_pl, ids = list(ids.placements), ids.to_local()
+    else:                                   # the same ids on every rank
+        ids_pl = [Replicate()] * len(names)
+    ids = ids.long()
+    if any(split):
+        n = wl.shape[0]
+        loc = ids - mesh.get_local_rank("model") * n
+        ok = ((loc >= 0) & (loc < n))[..., None]
+        rows = wl[loc.clamp(0, n - 1)]
+        rows = torch.where(ok, rows, torch.zeros_like(rows))
+    else:
+        rows = wl[ids]
+    out_pl = [Partial() if s else p for s, p in zip(split, ids_pl)]
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
+
+
+def last_rows(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] at each row's last valid position (lengths [B]) ->
+    [B, D].  On the mesh each rank takes its own rows' positions
+    (``kernels.local``): DTensor's own gather would first gather the
+    whole [B, S, D] to every rank."""
+    def take(x, lengths):
+        last = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
+        return x[torch.arange(x.shape[0], device=x.device), last]
+    if hasattr(x, "device_mesh"):
+        from repro_torch.kernels import local
+        return local.run_local(take, (x, lengths),
+                               (("dp", None, None), ("dp",)), ("dp", None))
+    return take(x, lengths)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., in] @ w [in, out] (+ b [out])."""

@@ -45,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import base as cfgs
 from repro_torch.models import blocks, shardctx
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
-                                       norm_init, softcap)
+                                       last_rows, lookup, norm_init,
+                                       softcap)
 
 
 def init_params(cfg: cfgs.ModelConfig, gen: torch.Generator, dtype=None
@@ -91,7 +92,7 @@ def init_cache(cfg: cfgs.ModelConfig, batch: int, smax: int, dtype=None,
 
 
 def _embed(cfg, params, batch, mode):
-    x = params["embed"]["w"][batch["tokens"].long()]
+    x = lookup(params["embed"]["w"], batch["tokens"])
     if cfg.scale_embedding:
         # sqrt(d_model) rounded to the model dtype first, as in JAX
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
@@ -104,7 +105,7 @@ def _embed(cfg, params, batch, mode):
         pos = batch["positions"]
         if pos.dim() == 3:
             pos = pos[..., 0]
-        x = x + params["pos_embed"]["w"][pos.long()]
+        x = x + lookup(params["pos_embed"]["w"], pos)
     return x
 
 
@@ -192,9 +193,8 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
         return {"hidden": x, "aux": aux}
     cache["len"] = lengths
     if mode == "prefill":
-        bidx = torch.arange(B, device=x.device)
-        last = (lengths - 1).clamp(0, S - 1).long()
-        return {"last_hidden": x[bidx, last], "cache": cache, "aux": aux}
+        return {"last_hidden": last_rows(x, lengths), "cache": cache,
+                "aux": aux}
     return {"hidden": x, "cache": cache, "aux": aux}
 
 

@@ -36,8 +36,8 @@ from repro_torch.configs import base as cfgs
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks, shardctx
 from repro_torch.models.common import (apply_mlp, apply_norm, dtype_of,
-                                       embed_init, linear, mlp_init,
-                                       norm_init)
+                                       embed_init, last_rows, linear, lookup,
+                                       mlp_init, norm_init)
 
 
 def init_params(cfg: cfgs.ModelConfig, gen: torch.Generator, dtype=None
@@ -99,8 +99,7 @@ def _self_qkv(p, x, cfg):
 
 def _out(p, o):
     """The output projection of attention heads o [B,S,H,hd]."""
-    B, S = o.shape[:2]
-    return linear(o.reshape(B, S, -1), p["wo"], p.get("bo"))
+    return linear(blocks.merge_heads(o), p["wo"], p.get("bo"))
 
 
 def encode(cfg: cfgs.ModelConfig, params, frames):
@@ -139,8 +138,8 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
         positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = (params["embed"]["w"][tokens.long()]
-         + params["pos_embed"]["w"][positions.long()])
+    x = (lookup(params["embed"]["w"], tokens)
+         + lookup(params["pos_embed"]["w"], positions))
 
     def layer_fn(layer, x, enc_out):
         lp = params["dec_layers"][layer]
@@ -190,7 +189,6 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
         return {"hidden": x, "aux": aux}
     cache["len"] = lengths
     if mode == "prefill":
-        bidx = torch.arange(B, device=dev)
-        last = (lengths - 1).clamp(0, S - 1).long()
-        return {"last_hidden": x[bidx, last], "cache": cache, "aux": aux}
+        return {"last_hidden": last_rows(x, lengths), "cache": cache,
+                "aux": aux}
     return {"hidden": x, "cache": cache, "aux": aux}

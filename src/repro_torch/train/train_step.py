@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import model_zoo
+from repro_torch.models import model_zoo, shardctx
 from repro_torch.train.optim import (AdamWConfig, adamw_init, adamw_update,
                                      leaves, map_tree)
 
@@ -55,13 +55,28 @@ def loss_fn(model: model_zoo.Model, params, batch, *, remat: bool = True):
 
 
 def _microbatches(batch: Dict[str, Any], n: int):
-    """Split the leading (batch) axis into n microbatches."""
+    """Split the leading (batch) axis into n microbatches of consecutive
+    rows, as the JAX package does.  On the mesh a DTensor batch is first
+    replicated (a view cannot split a sharded axis unevenly) and each
+    microbatch is placed by the batch rule again (``shardctx``)."""
     for name, x in batch.items():
         if x.shape[0] % n:
             raise ValueError(f"batch[{name!r}] has {x.shape[0]} rows, not "
                              f"a multiple of {n} microbatches")
-    return [{k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
-             for k, x in batch.items()} for i in range(n)]
+
+    def split(x):
+        if not shardctx.is_dtensor(x):
+            return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+        return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+
+    def place(x):
+        return shardctx.constrain(x, "dp", *([None] * (x.dim() - 1)))
+
+    split_batch = {k: split(x) for k, x in batch.items()}
+    return [{k: place(x[i]) for k, x in split_batch.items()}
+            for i in range(n)]
 
 
 def make_grad_fn(model: model_zoo.Model, *, grad_accum: int = 1,
@@ -86,8 +101,9 @@ def make_grad_fn(model: model_zoo.Model, *, grad_accum: int = 1,
     def grads(params, batch):
         if grad_accum <= 1:
             return forward_backward(params, batch)
-        acc = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        # fp32 zeros placed as the params are (DTensors on the mesh)
+        acc = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
         loss_sum = 0.0
         for mb in _microbatches(batch, grad_accum):
             loss, _aux, g = forward_backward(params, mb)

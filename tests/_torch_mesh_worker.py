@@ -118,8 +118,8 @@ def cells(job, mesh):
             from repro_torch.launch import roofline
             roof = roofline.analyze_step(
                 dc.run, (params, cache, dbatch), arch=case["arch"],
-                shape="decode_t", model_flops=dc.model_flops, chips=2,
-                mesh="1x2").to_dict()
+                shape="decode_t", model_flops=dc.model_flops,
+                mesh=mesh).to_dict()
         out[case["name"]] = {"roofline": roof,
                              "prefill": _np(logits), "decode": _np(logits2),
                              "len": lens,
@@ -127,6 +127,22 @@ def cells(job, mesh):
                              "split_leaves": len(split),
                              "leaves": len(leaves(params))}
     return out
+
+
+def rg_train(job, mesh):
+    """recurrentgemma's train step cell from JAX's initial state: loss
+    and grad norm (the RG-LRU's log-sigmoid of its DTensor a_param has a
+    backward on the mesh)."""
+    from repro_torch import bridge
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch import steps
+    cfg = _cfg(job["arch"], {})
+    shape = cfgs.ShapeSpec("train_t", job["S"], job["B"], "train")
+    cell = steps.build_cell(cfg, shape, mesh, grad_accum=1)
+    state, batch = cell.place(bridge.state_from_jax(cfg, job["state"]),
+                              _t(job["batch"]))
+    _, met = cell.run(state, batch)
+    return {k: float(_np(met[k])) for k in ("loss", "grad_norm")}
 
 
 def moe(job, meshes):
@@ -172,6 +188,8 @@ def worker(rank, job_path, out_path, store_path):
             res["decode_unit"] = decode_unit(job["decode_unit"], m12)
         if "cells" in job:
             res["cells"] = cells(job["cells"], m12)
+        if "rg_train" in job:
+            res["rg_train"] = rg_train(job["rg_train"], m12)
         if "moe" in job:
             # the blocking collectives that gloo ranks on CUDA tensors
             # run, here on CPU tensors: the MoE job goes through them

@@ -29,6 +29,9 @@ Both sides run in fp32.
     what the one-process writer makes of the same state.  The two runs'
     values are not bit-equal: a row-parallel product sums its halves on
     two ranks (7.8e-6 apart at most after two steps on this model).
+  * recurrentgemma-9b's train step cell on the (1, 2) mesh against its
+    one-rank step and JAX's step: loss and grad norm within 1e-5
+    (relative).
 """
 import dataclasses
 import os
@@ -126,6 +129,35 @@ def _decode_unit():
     return d
 
 
+def _rg_train(rng):
+    """recurrentgemma-9b's smoke train step (fp32) from JAX's initial
+    state: the job for the ranks, and the loss and grad norm of JAX's step
+    and of the port's one-rank step on the same state and batch."""
+    from repro_torch import bridge
+    from repro_torch.models import model_zoo
+    from repro_torch.train.train_step import make_train_step
+    arch = "recurrentgemma-9b"
+    cfg = _cfg(arch)
+    jm = jzoo.build(cfg)
+    state = jax.tree.map(np.asarray, jstep.init_state(
+        jm, jax.random.PRNGKey(3)).tree())
+    tok = rng.integers(3, cfg.vocab_size, (B, S), dtype=np.int32)
+    batch = {"tokens": tok, "labels": tok,
+             "loss_mask": np.ones((B, S), np.float32)}
+    _, jmet = jstep.make_train_step(jm, joptim.AdamWConfig())(
+        jax.tree.map(jnp.asarray, state),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    from repro_torch.configs import base as tcfgs
+    tcfg = dataclasses.replace(tcfgs.get_smoke_config(arch), dtype="float32")
+    _, tmet = make_train_step(model_zoo.build(tcfg), grad_accum=1)(
+        bridge.state_from_jax(tcfg, state),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    keys = ("loss", "grad_norm")
+    return ({"arch": arch, "state": state, "batch": batch, "B": B, "S": S},
+            {"jax": {k: float(jmet[k]) for k in keys},
+             "one": {k: float(tmet[k]) for k in keys}})
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
@@ -146,6 +178,7 @@ def run(tmp_path_factory):
             "arch": arch, "params": _params(cfg, 10 + i),
             "batch": {"tokens": rng.integers(3, cfg.vocab_size, (B, 8),
                                              dtype=np.int32)}})
+    job["rg_train"], ref["rg_train"] = _rg_train(rng)
     job_path, out_path = tmp / "job.pkl", tmp / "out.pkl"
     with open(job_path, "wb") as f:
         pickle.dump(job, f)
@@ -252,6 +285,27 @@ def test_mesh_step_roofline_counts_collectives(run):
         assert roof["collective_bytes_per_dev"] > 0
         assert roof["hlo_flops_per_dev"] > 0
         assert 0.0 <= roof["mfu_bound"] <= 1.0
+        assert (roof["mesh"], roof["chips"]) == ("1x2", 2)
+        by_axis = roof["detail"]["collective_by_axis"]
+        assert sum(by_axis.values()) == pytest.approx(
+            roof["collective_bytes_per_dev"])
+        # two cards lie inside a node: every wire byte crosses NVLink
+        assert roof["t_collective_s"] == pytest.approx(
+            roof["collective_bytes_per_dev"] / 450e9)
+
+
+def test_recurrentgemma_train_step_on_two_ranks(run):
+    """recurrentgemma-9b's train step on the (1, 2) mesh (RG-LRU width and
+    its a_param sharded over ``model``) against its one-rank step and
+    JAX's step on the same state and batch."""
+    ranks, ref = run
+    want = ref["rg_train"]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(want["one"][k], want["jax"][k],
+                                   rtol=STEP_TOL)
+        for r in ranks:
+            np.testing.assert_allclose(r["rg_train"][k], want["one"][k],
+                                       rtol=STEP_TOL)
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x1"])
