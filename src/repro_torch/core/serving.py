@@ -608,6 +608,11 @@ class ServingEngine:
             else Observability()
         self.scheduler.registry = self.obs.registry
         self.pipeline.registry = self.obs.registry
+        # the engines record their batchers' spans while tracing is on
+        for m in scheduler.hosted_models():
+            for e in scheduler.replicas(m):
+                if hasattr(e, "obs"):
+                    e.obs = self.obs
         self._register_collectors()
         self._lock = threading.Lock()
         self._qids = itertools.count(1)

@@ -13,7 +13,9 @@ The PyTorch counterpart of ``repro.inference.continuous``:
     decode steps;
   * **flash decode**: single-token steps route ``decode_attention``
     through ``kernels/decode_attention`` (``attention.use_decode_impl``):
-    the CUDA kernel on the card, its plain version on the CPU.
+    the CUDA kernel on the card, its plain version on the CPU;
+  * **spans**: while tracing or a profiler is on, each ``serve`` call
+    records a wave tree of step and phase spans (``obs/engine.py``).
 
 Per-row results do not depend on batch composition.  They match the static
 path of ``engine.py`` to within floating-point summation order, not
@@ -35,6 +37,7 @@ from repro_torch.inference.backend import (COMPLETE, SCORE, EngineFailure,
                                            Request, Result, credits_for)
 from repro_torch.inference.paged_kv import PagedKVCache
 from repro_torch.models import attention
+from repro_torch.obs.engine import WaveRecorder
 from repro_torch.train.optim import leaves, map_tree
 
 
@@ -111,6 +114,7 @@ class ContinuousBatcher:
         self.peak_blocks = 0
         # roofline: the arguments of the largest step of each kind
         self._step_args: Dict[str, Tuple[int, Tuple[Any, ...]]] = {}
+        self._rec = WaveRecorder(self.device)
 
     # ------------------------------------------------------------------
     # serve loop
@@ -122,18 +126,23 @@ class ContinuousBatcher:
         submission order with per-request completion-time latency."""
         t0 = time.perf_counter() if t0 is None else t0
         self.waves += 1
-        pending: Deque[_Seq] = deque()
-        for i, r in enumerate(requests):
-            enc = tok.encode(r.prompt, max_len=self.engine.max_seq)
-            pending.append(_Seq(req=r, index=i, enc=enc, slot=-1, blocks=[]))
-        active: List[Optional[_Seq]] = [None] * self.slots
-        results: List[Optional[Result]] = [None] * len(requests)
-        while pending or any(s is not None for s in active):
-            self._admit(pending, active)
-            if any(s is not None and s.state == "prefill" for s in active):
-                self._prefill_step(active, results, t0)
-            if any(s is not None and s.state == "decode" for s in active):
-                self._decode_step(active, results, t0)
+        with self._rec.wave(self.engine.obs, self.engine.engine_id,
+                            self.waves, requests):
+            pending: Deque[_Seq] = deque()
+            for i, r in enumerate(requests):
+                enc = tok.encode(r.prompt, max_len=self.engine.max_seq)
+                pending.append(_Seq(req=r, index=i, enc=enc, slot=-1,
+                                    blocks=[]))
+            active: List[Optional[_Seq]] = [None] * self.slots
+            results: List[Optional[Result]] = [None] * len(requests)
+            while pending or any(s is not None for s in active):
+                self._admit(pending, active)
+                if any(s is not None and s.state == "prefill"
+                       for s in active):
+                    self._prefill_step(active, results, t0)
+                if any(s is not None and s.state == "decode"
+                       for s in active):
+                    self._decode_step(active, results, t0)
         return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
@@ -214,49 +223,67 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
 
     def _prefill_step(self, active, results, t0) -> None:
-        C = self.prefill_chunk
-        B = self.slots
-        nb = self._gather_width(active, C)
-        toks = np.zeros((B, C), np.int32)
-        counts = np.zeros((B,), np.int32)
-        pre = [s for s in active if s is not None and s.state == "prefill"]
-        for s in pre:
-            v = min(C, len(s.enc) - s.filled)
-            toks[s.slot, :v] = s.enc[s.filled:s.filled + v]
-            counts[s.slot] = v
-        dev = self._device_state(active, nb)
-        args = (dev["tables"], dev["lens"],
-                torch.as_tensor(counts, device=self.device),
-                torch.as_tensor(toks, device=self.device))
-        self._record_step("prefill", B * C, args)
-        logits, new_lens = self._prefill_fn(*args)
-        self.prefill_steps += 1
-        self.prefill_tokens += int(counts.sum())
-        for s in pre:
-            v = int(counts[s.slot])
-            s.filled += v
-            self.lens_np[s.slot] += v
-        dev["lens"] = new_lens
-        lf = None
-        for s in pre:
-            if s.filled >= len(s.enc):
-                if lf is None:
-                    lf = logits.float().cpu().numpy()
-                self._finish_prefill(s, lf[s.slot], active, results, t0)
+        rec = self._rec
+        with rec.step("prefill") as span:
+            with rec.phase("step.upload"):
+                C = self.prefill_chunk
+                B = self.slots
+                nb = self._gather_width(active, C)
+                toks = np.zeros((B, C), np.int32)
+                counts = np.zeros((B,), np.int32)
+                pre = [s for s in active
+                       if s is not None and s.state == "prefill"]
+                for s in pre:
+                    v = min(C, len(s.enc) - s.filled)
+                    toks[s.slot, :v] = s.enc[s.filled:s.filled + v]
+                    counts[s.slot] = v
+                dev = self._device_state(active, nb)
+                args = (dev["tables"], dev["lens"],
+                        torch.as_tensor(counts, device=self.device),
+                        torch.as_tensor(toks, device=self.device))
+                self._record_step("prefill", B * C, args)
+            if span is not None:
+                at = []
+                for s in pre:
+                    v = int(counts[s.slot])
+                    at.append([s.filled, v, int(s.filled + v == len(s.enc))])
+                span.set(rows=sum(s is not None for s in active),
+                         tokens=int(counts.sum()), nb=nb, rows_at=at)
+            logits, new_lens = self._prefill_fn(*args)
+            self.prefill_steps += 1
+            self.prefill_tokens += int(counts.sum())
+            for s in pre:
+                v = int(counts[s.slot])
+                s.filled += v
+                self.lens_np[s.slot] += v
+            dev["lens"] = new_lens
+            lf = None
+            for s in pre:
+                if s.filled >= len(s.enc):
+                    if lf is None:
+                        with rec.phase("step.readback"):
+                            lf = logits.float().cpu().numpy()
+                    self._finish_prefill(s, lf[s.slot], active, results, t0)
 
     def _prefill_fn(self, tables, lens, counts, toks):
         params = self.engine.params
-        cache = self.kv.gather(self.kv.pool, tables, lens)
-        C = toks.shape[1]
-        pos = lens[:, None] + torch.arange(C, dtype=torch.int32,
-                                           device=toks.device)[None]
-        out = self.model.apply(params, {"tokens": toks, "positions": pos},
-                               mode="decode", cache=cache)
-        last = (counts - 1).clamp(0, C - 1).long()
-        h = out["hidden"][torch.arange(toks.shape[0], device=toks.device),
-                          last]
-        logits = self.model.logits_of(params, h)
-        self.kv.scatter(self.kv.pool, out["cache"], tables, lens, counts, C)
+        phase = self._rec.phase
+        with phase("step.gather"):
+            cache = self.kv.gather(self.kv.pool, tables, lens)
+        with phase("step.forward"):
+            C = toks.shape[1]
+            pos = lens[:, None] + torch.arange(C, dtype=torch.int32,
+                                               device=toks.device)[None]
+            out = self.model.apply(params, {"tokens": toks, "positions": pos},
+                                   mode="decode", cache=cache)
+        with phase("step.logits"):
+            last = (counts - 1).clamp(0, C - 1).long()
+            h = out["hidden"][torch.arange(toks.shape[0], device=toks.device),
+                              last]
+            logits = self.model.logits_of(params, h)
+        with phase("step.scatter"):
+            self.kv.scatter(self.kv.pool, out["cache"], tables, lens, counts,
+                            C)
         return logits, lens + counts
 
     def _finish_prefill(self, s: _Seq, logits_row: np.ndarray, active,
@@ -279,36 +306,50 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
 
     def _decode_step(self, active, results, t0) -> None:
-        B = self.slots
-        nb = self._gather_width(active, 1)
-        cur = np.zeros((B, 1), np.int32)
-        dec = [s for s in active if s is not None and s.state == "decode"]
-        for s in dec:
-            cur[s.slot, 0] = s.cur
-        dev = self._device_state(active, nb)
-        args = (dev["tables"], dev["lens"], dev["act"],
-                torch.as_tensor(cur, device=self.device))
-        self._record_step("decode", B, args)
-        nxt_dev, new_lens = self._decode_fn(*args)
-        self.decode_steps += 1
-        self.decode_tokens += len(dec)
-        nxt = nxt_dev.cpu().numpy().astype(np.int32)
-        for s in dec:
-            self.lens_np[s.slot] += 1
-        dev["lens"] = new_lens
-        for s in dec:
-            s.cur = int(nxt[s.slot])
-            self._consume(s, active, results, t0)
+        rec = self._rec
+        with rec.step("decode") as span:
+            with rec.phase("step.upload"):
+                B = self.slots
+                nb = self._gather_width(active, 1)
+                cur = np.zeros((B, 1), np.int32)
+                dec = [s for s in active
+                       if s is not None and s.state == "decode"]
+                for s in dec:
+                    cur[s.slot, 0] = s.cur
+                dev = self._device_state(active, nb)
+                args = (dev["tables"], dev["lens"], dev["act"],
+                        torch.as_tensor(cur, device=self.device))
+                self._record_step("decode", B, args)
+            if span is not None:
+                span.set(rows=sum(s is not None for s in active),
+                         tokens=len(dec), nb=nb)
+            nxt_dev, new_lens = self._decode_fn(*args)
+            self.decode_steps += 1
+            self.decode_tokens += len(dec)
+            with rec.phase("step.readback"):
+                nxt = nxt_dev.cpu().numpy().astype(np.int32)
+            for s in dec:
+                self.lens_np[s.slot] += 1
+            dev["lens"] = new_lens
+            for s in dec:
+                s.cur = int(nxt[s.slot])
+                self._consume(s, active, results, t0)
 
     def _decode_fn(self, tables, lens, act, cur):
         params = self.engine.params
-        cache = self.kv.gather(self.kv.pool, tables, lens)
-        with attention.use_decode_impl(self.decode_impl):
-            out = self.model.apply(params, {"tokens": cur}, mode="decode",
-                                   cache=cache)
-        logits = self.model.logits_of(params, out["hidden"][:, 0])
-        self.kv.scatter(self.kv.pool, out["cache"], tables, lens, act, 1)
-        return torch.argmax(logits, -1), lens + act
+        phase = self._rec.phase
+        with phase("step.gather"):
+            cache = self.kv.gather(self.kv.pool, tables, lens)
+        with phase("step.forward"):
+            with attention.use_decode_impl(self.decode_impl):
+                out = self.model.apply(params, {"tokens": cur}, mode="decode",
+                                       cache=cache)
+        with phase("step.logits"):
+            logits = self.model.logits_of(params, out["hidden"][:, 0])
+            nxt = torch.argmax(logits, -1)
+        with phase("step.scatter"):
+            self.kv.scatter(self.kv.pool, out["cache"], tables, lens, act, 1)
+        return nxt, lens + act
 
     def _consume(self, s: _Seq, active, results, t0) -> None:
         """Append the sampled token and retire on EOS / max_tokens:

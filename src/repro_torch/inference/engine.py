@@ -116,6 +116,9 @@ class TorchInferenceEngine:
         self.total_requests = 0
         self.total_tokens = 0
         self.total_credits = 0.0
+        # the serving process's `Observability` (set by ``ServingEngine``):
+        # while it is enabled the batcher records its waves' spans
+        self.obs = None
 
     # ------------------------------------------------------------------
     # batching helpers

@@ -11,6 +11,12 @@ One :class:`Observability` object bundles what a serving process needs:
 ``enabled`` gates *tracing* only — metrics are always recorded once an
 Observability object is attached, because they are cheap (a dict lookup
 and a locked increment) while span trees allocate per call site.
+
+The engines' continuous batchers record one span tree per wave (steps and
+their phases, with CUDA stream times) into a second, process-wide ring,
+:func:`engine_ring`, keyed ``"<engine_id>/<wave n>"`` (``obs/engine.py``).
+Their gate: the ``Observability`` that ``ServingEngine`` hands its engines
+is enabled, or a torch profiler runs; otherwise a step records nothing.
 """
 from .metrics import (BUCKET_BOUNDS, BUCKET_COUNT, BUCKET_FACTOR,
                       BUCKET_START, METRIC_FAMILIES, QUANTILE_REL_ERROR,
@@ -19,6 +25,7 @@ from .metrics import (BUCKET_BOUNDS, BUCKET_COUNT, BUCKET_FACTOR,
 from .trace import (EVENT_KINDS, NOOP, SPAN_KINDS, Span, TickClock, TraceRing,
                     Tracer, activate, active_tracer, critical_path, to_chrome,
                     to_json, walk_spans)
+from .engine import engine_ring
 
 __all__ = [
     "Observability", "Tracer", "Span", "TickClock", "TraceRing", "NOOP",
@@ -26,7 +33,7 @@ __all__ = [
     "walk_spans", "SPAN_KINDS", "EVENT_KINDS", "MetricsRegistry",
     "METRIC_FAMILIES", "locked_snapshot", "parse_prometheus_text",
     "QUANTILE_REL_ERROR", "BUCKET_BOUNDS", "BUCKET_COUNT", "BUCKET_FACTOR",
-    "BUCKET_START",
+    "BUCKET_START", "engine_ring",
 ]
 
 

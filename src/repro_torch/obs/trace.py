@@ -12,6 +12,15 @@ The tracer is activated per query on the executing thread via the
 spill manager) fetch it with ``active_tracer()`` — which returns the
 shared no-op tracer when tracing is off, so the disabled path costs a
 thread-local read and an attribute check.
+
+Below ``dispatch.replica`` the engines keep trees of their own: each
+continuous-batcher wave (``engine.wave`` > ``engine.step`` > ``step.*``
+phases) is recorded by a :class:`Tracer` of its own on
+``time.perf_counter`` and put into the process-wide engine ring
+(``obs/engine.py``, ``engine_ring()``), not into the query's tree.  They
+record only while the process's ``Observability`` is enabled or a torch
+profiler runs (the gate), and carry each phase's CUDA stream time as
+``device_ms``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,16 @@ SPAN_KINDS = {
     "cascade": "proxy/oracle cascade run for one predicate batch",
     "pipeline.dispatch": "one coalesced batch leaving the request pipeline",
     "dispatch.replica": "one batch attempt on one backend replica",
+    "engine.wave": "one continuous-batcher serve() call: the root of a "
+                   "tree in the engine ring",
+    "engine.step": "one prefill or decode step of the continuous batcher",
+    "step.upload": "host step arrays, device state and their uploads",
+    "step.gather": "the paged KV pool gathered into the dense cache",
+    "step.forward": "the model's layers over the step's tokens",
+    "step.logits": "the row pick and the output head (and argmax in "
+                   "decode)",
+    "step.scatter": "the step's new keys and values scattered to the pool",
+    "step.readback": "logits or sampled tokens copied to the host",
 }
 
 EVENT_KINDS = {
