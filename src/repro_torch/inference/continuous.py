@@ -14,6 +14,10 @@ The PyTorch counterpart of ``repro.inference.continuous``:
   * **flash decode**: single-token steps route ``decode_attention``
     through ``kernels/decode_attention`` (``attention.use_decode_impl``):
     the CUDA kernel on the card, its plain version on the CPU;
+  * **chunked-prefill attention**: on the card a prefill step's attention
+    layers run K2's chunked entry (``attention.takes_chunked_kernel``):
+    qk-norm, RoPE, the cache append and the attention in two launches a
+    layer, counted in ``stats()["prefill_attn_kernel_layers"]``;
   * **spans**: while tracing or a profiler is on, each ``serve`` call
     records a wave tree of step and phase spans (``obs/engine.py``).
 
@@ -110,6 +114,10 @@ class ContinuousBatcher:
         self.prefill_steps = 0
         self.decode_steps = 0
         self.prefill_tokens = 0    # prompt tokens written via chunked prefill
+        # layers of prefill steps that ran K2's chunked entry, as each
+        # step's forward counts them (``_prefill_fn``)
+        self.prefill_attn_kernel_layers = 0
+        self._chunked_layers = 0
         self.decode_tokens = 0     # decode-step slot participations
         self.peak_blocks = 0
         # roofline: the arguments of the largest step of each kind
@@ -250,6 +258,7 @@ class ContinuousBatcher:
                 span.set(rows=sum(s is not None for s in active),
                          tokens=int(counts.sum()), nb=nb, rows_at=at)
             logits, new_lens = self._prefill_fn(*args)
+            self.prefill_attn_kernel_layers += self._chunked_layers
             self.prefill_steps += 1
             self.prefill_tokens += int(counts.sum())
             for s in pre:
@@ -276,6 +285,7 @@ class ContinuousBatcher:
                                                device=toks.device)[None]
             out = self.model.apply(params, {"tokens": toks, "positions": pos},
                                    mode="decode", cache=cache)
+            self._chunked_layers = out.get("chunked_layers", 0)
         with phase("step.logits"):
             last = (counts - 1).clamp(0, C - 1).long()
             h = out["hidden"][torch.arange(toks.shape[0], device=toks.device),
@@ -430,6 +440,7 @@ class ContinuousBatcher:
             "prefill_steps": self.prefill_steps,
             "decode_steps": self.decode_steps,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_attn_kernel_layers": self.prefill_attn_kernel_layers,
             "decode_tokens": self.decode_tokens,
             "decode_slot_occupancy": occ,
             "kv_blocks": self.kv.num_blocks,

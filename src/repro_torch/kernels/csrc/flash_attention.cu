@@ -41,6 +41,23 @@
 // In both, a row's softmax statistics live in the 4 lanes of one quad and
 // combine by 2-step shuffles in a fixed order (no atomics: results repeat
 // bit for bit).
+//
+// The chunked-prefill entry (repro_flash_attention_chunked) replaces no TPU
+// kernel: the JAX package runs a decode step with T > 1 new tokens a row
+// as dense masked einsums (models/attention.py::decode_attention after
+// _qkv's norm and RoPE and write_kv's scatter).  It runs that step of the
+// continuous batcher in two launches.  chunk_prologue_kernel applies the
+// per-head RMSNorm (qk-norm) and the half-split RoPE to the new q and k,
+// rounding to the tensor's type after each as the plain path does, writes
+// q to a [B, T, H, hd] scratch, and writes the new k and v into the dense
+// cache view at their positions lengths[b] - T + t, dropping positions
+// outside [0, Smax) (no boolean index, no host sync).  The attention
+// kernels above then take per-row query offsets: query t of row b sits at
+// lengths[b] - T + t and sees keys 0 .. that position; a unit whose rows
+// see no key loads nothing and writes zeros.  What bounds it: the keys
+// and values read once per q tile (2 q tiles a (row, kv head) at G = 8, T
+// = 32), the bytes of the valid cache prefix; the prologue moves q, k, v
+// twice, a few MB a layer.
 #include <string.h>
 
 #include <type_traits>
@@ -52,6 +69,11 @@
 namespace {
 
 using namespace repro;
+
+// the chunked entry's 15 strides, passed to its prologue by value
+struct StridesChunk {
+  long long v[15];
+};
 
 constexpr int BQ = 32;     // q rows per block
 constexpr int BK = 32;     // kv rows per tile
@@ -70,7 +92,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float scale) {
+    float scale, const int* __restrict__ lengths) {
   constexpr int QS = HD + 1;   // padded row strides: no bank conflicts
   constexpr int KS = HD + 1;
   constexpr int SS = BK + 1;
@@ -88,7 +110,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   const int c = h / (H / KV);
   const int tid = threadIdx.x;
   const int r = tid >> 2, quarter = tid & 3;
-  const int q_off = Skv - Sq;
+  // q row i sits at kv position i + q_off: per row where lengths is given
+  const int q_off = lengths != nullptr ? lengths[b] - Sq : Skv - Sq;
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + c * k_sh;
@@ -396,7 +419,7 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
     const __grid_constant__ CUtensorMap v_map,
     __nv_bfloat16* __restrict__ out, int B, int KV, int G, int Sq, int Skv,
     long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float scale) {
+    float scale, const int* __restrict__ lengths) {
   using F = FlashShape<HD>;
   constexpr int HDP = F::HDP;
   extern __shared__ unsigned char smem_raw[];
@@ -413,25 +436,27 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
   const int rows = tp * G;               // its rows: G <= BM
   const int n_qt = (Sq + tp - 1) / tp;
   const int units = n_qt * KV * B;
-  const int q_off = Skv - Sq;
   // unit u: q tile n_qt - 1 - u / (KV B) (the widest causal bands first),
-  // kv head u % KV, batch row (u / KV) % B; the kv tiles its band sees
+  // kv head u % KV, batch row (u / KV) % B; q position i of its row sits
+  // at kv position i + q_off (per row where lengths is given); the kv
+  // tiles its band sees, none where no row of it sees a key
   struct Unit {
-    int q0, kvh, b, k_begin, n_tiles;
+    int q0, kvh, b, q_off, k_begin, n_tiles;
   };
   auto unit = [&](int u) {
     Unit w;
     w.q0 = (n_qt - 1 - u / (KV * B)) * tp;
     w.kvh = u % KV;
     w.b = (u / KV) % B;
-    const int qpos_lo = w.q0 + q_off;
-    const int qpos_hi = min(w.q0 + tp, Sq) - 1 + q_off;
+    w.q_off = lengths != nullptr ? lengths[w.b] - Sq : Skv - Sq;
+    const int qpos_lo = w.q0 + w.q_off;
+    const int qpos_hi = min(w.q0 + tp, Sq) - 1 + w.q_off;
     int k_end = Skv;
     if (causal) k_end = min(k_end, qpos_hi + 1);
     int k_begin = 0;
     if (window > 0) k_begin = max(0, qpos_lo - window + 1);
     w.k_begin = (k_begin / BKV) * BKV;
-    w.n_tiles = (k_end - w.k_begin + BKV - 1) / BKV;
+    w.n_tiles = k_end > w.k_begin ? (k_end - w.k_begin + BKV - 1) / BKV : 0;
     return w;
   };
 
@@ -452,11 +477,13 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
     prefetch_map(&q_map);
     prefetch_map(&k_map);
     prefetch_map(&v_map);
-    int it = 0, q_round = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x, ++q_round) {
+    int it = 0, q_round = 0;   // q_round: units loaded so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const Unit w = unit(u);
+      if (w.n_tiles == 0) continue;            // sees no key: loads nothing
       // the consumers' last S of the previous unit has read Q
       if (q_round > 0) mbar_wait(q_empty, (q_round - 1) & 1);
+      ++q_round;
       mbar_expect_tx(q_full, rows * HDP * 2);   // TMA counts the fill too
       for (int c = 0; c < F::CHUNKS; ++c)
         tma_load_4d(sq + c * BM * 128, &q_map, q_full, c * CHUNK,
@@ -485,15 +512,16 @@ __global__ void __launch_bounds__(FlashShape<HD>::THREADS, 1)
   const int g = lane / 4, t = lane % 4;
   const int r0 = wg * 64 + warp * 16 + g;      // rows r0 and r0 + 8
   int it = 0, q_round = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x, ++q_round) {
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const Unit w = unit(u);
     const int pos[2] = {w.q0 + r0 / G, w.q0 + (r0 + 8) / G};
-    const int qp[2] = {pos[0] + q_off, pos[1] + q_off};
+    const int qp[2] = {pos[0] + w.q_off, pos[1] + w.q_off};
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
     float o[HDP / 2];
 #pragma unroll
     for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
-    mbar_wait(q_full, q_round & 1);
+    // a unit with no key was not loaded: its rows write zeros
+    if (w.n_tiles > 0) mbar_wait(q_full, q_round++ & 1);
     for (int i = 0; i < w.n_tiles; ++i, ++it) {
       const int s = it % F::STAGES;
       mbar_wait(full_bar(s), (it / F::STAGES) & 1);
@@ -653,7 +681,8 @@ template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int KV, int Sq, int Skv,
                         const long long* st, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        float scale, const int* lengths,
+                        cudaStream_t stream) {
   const int G = H / KV;
   constexpr int BM = FlashShape<HD>::BM;
   if (G > BM) return static_cast<cudaError_t>(ERR_UNSUPPORTED);
@@ -671,7 +700,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const int units = (Sq + BM / G - 1) / (BM / G) * KV * B;
   kern<<<min(units, sms), FlashShape<HD>::THREADS, bytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), B, KV, G, Sq,
-      Skv, st[9], st[10], st[11], causal, window, scale);
+      Skv, st[9], st[10], st[11], causal, window, scale, lengths);
   return cudaGetLastError();
 }
 
@@ -679,10 +708,10 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int KV, int Sq, int Skv,
                    const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const int* lengths, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_bf16<HD>(q, k, v, out, B, H, KV, Sq, Skv, st, causal,
-                           window, scale, stream);
+                           window, scale, lengths, stream);
   } else {
     constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
     auto kern = flash_attention_kernel<T, HD>;
@@ -693,7 +722,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Skv,
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-        st[10], st[11], causal, window, scale);
+        st[10], st[11], causal, window, scale, lengths);
     return cudaGetLastError();
   }
 }
@@ -702,14 +731,139 @@ template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* out, int B, int H, int KV, int Sq, int Skv,
                         const long long* st, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        float scale, const int* lengths,
+                        cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
-    case 160: return launch<T, 160>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, lengths, stream);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, lengths, stream);
+    case 160: return launch<T, 160>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, lengths, stream);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Skv, st, causal, window, scale, lengths, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// --------------------------------------------------------------------------
+// The chunked-prefill prologue: one block of PRO_WARPS warps a (token t,
+// row b); warp w takes heads w, w + PRO_WARPS, ... of the H q heads and
+// the KV kv heads.  A lane holds the RoPE pairs (i, i + hd / 2) for i =
+// lane, lane + 32, ...: the RMSNorm's sum of squares is a warp reduction,
+// the rotation needs no exchange.  Every product and sum is rounded on its
+// own (__fmul_rn, __fadd_rn: no fused multiply-add), in the plain path's
+// order: x * rsqrt(mean(x^2) + eps) * scale, rounded to T; then x1 cos -
+// x2 sin and x2 cos + x1 sin, rounded to T.  cos and sin [B, T, hd / 2]
+// come from the host's fp32 tables (the plain path's own ops), so the
+// rotation is the plain path's to the bit.
+// --------------------------------------------------------------------------
+
+constexpr int PRO_WARPS = 8;
+constexpr int PRO_PAIRS = 4;      // RoPE pairs a lane: hd / 2 / 32, up to 4
+
+template <typename T>
+__device__ __forceinline__ void prologue_row(
+    const T* __restrict__ src, T* __restrict__ dst, const T* __restrict__ nw,
+    float eps, const float* __restrict__ cs, const float* __restrict__ sn,
+    int hd, int lane) {
+  const int half = hd / 2;
+  float a[PRO_PAIRS], b[PRO_PAIRS];
+#pragma unroll
+  for (int j = 0; j < PRO_PAIRS; ++j) {
+    const int i = lane + 32 * j;
+    a[j] = i < half ? repro::to_f32(src[i]) : 0.f;
+    b[j] = i < half ? repro::to_f32(src[i + half]) : 0.f;
+  }
+  if (nw != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < PRO_PAIRS; ++j)
+      ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(a[j], a[j]),
+                                   __fmul_rn(b[j], b[j])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+    const float r = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / hd), eps));
+#pragma unroll
+    for (int j = 0; j < PRO_PAIRS; ++j) {
+      const int i = lane + 32 * j;
+      if (i >= half) continue;
+      a[j] = repro::to_f32(repro::from_f32<T>(
+          __fmul_rn(__fmul_rn(a[j], r), repro::to_f32(nw[i]))));
+      b[j] = repro::to_f32(repro::from_f32<T>(
+          __fmul_rn(__fmul_rn(b[j], r), repro::to_f32(nw[i + half]))));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PRO_PAIRS; ++j) {
+    const int i = lane + 32 * j;
+    if (i >= half) continue;
+    float x = a[j], y = b[j];
+    if (cs != nullptr) {
+      const float c = cs[i], s = sn[i];
+      x = __fsub_rn(__fmul_rn(a[j], c), __fmul_rn(b[j], s));
+      y = __fadd_rn(__fmul_rn(b[j], c), __fmul_rn(a[j], s));
+    }
+    dst[i] = repro::from_f32<T>(x);
+    dst[i + half] = repro::from_f32<T>(y);
+  }
+}
+
+// st: q, k, v, cache_k, cache_v strides (sb, ss, sh) in elements, 15 in
+// all; q_out is [B, T, H, hd] contiguous; cos / sin [B, T, hd / 2] fp32
+// contiguous or null (no RoPE); q_w / k_w the norms' scales [hd] or null
+template <typename T>
+__global__ void __launch_bounds__(PRO_WARPS * 32) chunk_prologue_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ q_w,
+    const T* __restrict__ k_w, float eps, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, const int* __restrict__ lengths,
+    T* __restrict__ q_out, T* __restrict__ ck, T* __restrict__ cv, int T_,
+    int H, int KV, int Smax, int hd, const StridesChunk st) {
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(b) * T_ + t;
+  const float* cs = cos_t != nullptr ? cos_t + row * (hd / 2) : nullptr;
+  const float* sn = sin_t != nullptr ? sin_t + row * (hd / 2) : nullptr;
+  const int pos = lengths[b] - T_ + t;       // where the new k, v go
+  const bool keep = pos >= 0 && pos < Smax;
+  for (int h = warp; h < H + KV; h += PRO_WARPS) {
+    if (h < H) {
+      prologue_row(q + b * st.v[0] + t * st.v[1] + h * st.v[2],
+                   q_out + (row * H + h) * hd, q_w, eps, cs, sn, hd, lane);
+      continue;
+    }
+    if (!keep) continue;
+    const int c = h - H;
+    prologue_row(k + b * st.v[3] + t * st.v[4] + c * st.v[5],
+                 ck + b * st.v[9] + pos * st.v[10] + c * st.v[11], k_w, eps,
+                 cs, sn, hd, lane);
+    const T* vs = v + b * st.v[6] + t * st.v[7] + c * st.v[8];
+    T* vd = cv + b * st.v[12] + pos * st.v[13] + c * st.v[14];
+    for (int i = lane; i < hd; i += 32) vd[i] = vs[i];
+  }
+}
+
+template <typename T>
+cudaError_t launch_chunked(const void* q, const void* k, const void* v,
+                           const void* q_w, const void* k_w, float eps,
+                           const float* cos_t, const float* sin_t,
+                           const int* lengths, void* q_out, void* ck,
+                           void* cv, void* out, int B, int T_, int H, int KV,
+                           int Smax, int hd, const StridesChunk& st,
+                           float scale, cudaStream_t stream) {
+  chunk_prologue_kernel<T><<<dim3(T_, B), PRO_WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(q_w),
+      static_cast<const T*>(k_w), eps, cos_t, sin_t, lengths,
+      static_cast<T*>(q_out), static_cast<T*>(ck), static_cast<T*>(cv), T_,
+      H, KV, Smax, hd, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long q_ss = static_cast<long long>(H) * hd;
+  const long long att[12] = {T_ * q_ss, q_ss, hd,              // q_out
+                             st.v[9], st.v[10], st.v[11],      // cache k
+                             st.v[12], st.v[13], st.v[14],     // cache v
+                             T_ * q_ss, q_ss, hd};             // out
+  return dispatch_hd<T>(hd, q_out, ck, cv, out, B, H, KV, T_, Smax, att, 1,
+                        0, scale, lengths, stream);
 }
 
 }  // namespace
@@ -733,11 +887,51 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err;
   if (dtype == repro::DTYPE_BF16)
     err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq, Skv,
-                                     strides, causal, window, scale, s);
+                                     strides, causal, window, scale, nullptr,
+                                     s);
   else if (dtype == repro::DTYPE_F32)
     err = dispatch_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Skv, strides,
-                             causal, window, scale, s);
+                             causal, window, scale, nullptr, s);
   else
     err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The chunked-prefill step of one layer: q [B,T,H,hd], k and v [B,T,KV,hd]
+// (the projections, before norm and RoPE), the dense cache view cache_k /
+// cache_v [B,Smax,KV,hd] and lengths [B] (int32, on the device: tokens
+// valid after the step, the new ones included).  q_w / k_w: the qk-norm's
+// scales [hd] or null; cos / sin: [B,T,hd/2] fp32 or null; q_out: a
+// [B,T,H,hd] scratch; out [B,T,H,hd] (both contiguous).  strides[15] =
+// {q, k, v, cache_k, cache_v} x (sb, ss, sh).  Writes the new k, v into
+// the cache view and the attention into out.  Returns as
+// repro_flash_attention; where the bf16 kernel cannot take the input it
+// returns ERR_UNSUPPORTED before launching anything.
+extern "C" int repro_flash_attention_chunked(
+    const void* q, const void* k, const void* v, const void* q_w,
+    const void* k_w, const float* cos_t, const float* sin_t,
+    const int* lengths, void* q_out, void* cache_k, void* cache_v, void* out,
+    int dtype, int B, int T, int H, int KV, int Smax, int hd,
+    const long long* strides, float eps, float scale, void* stream) {
+  if (KV <= 0 || H % KV != 0 || T <= 0 || Smax <= 0 || B <= 0 ||
+      hd / 2 > 32 * PRO_PAIRS)
+    return (int)cudaErrorInvalidValue;
+  StridesChunk st;
+  for (int i = 0; i < 15; ++i) st.v[i] = strides[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == repro::DTYPE_BF16) {
+    if (H / KV > (hd > 128 ? 64 : 128))      // FlashShape<hd>::BM
+      return ERR_UNSUPPORTED;
+    err = launch_chunked<__nv_bfloat16>(q, k, v, q_w, k_w, eps, cos_t, sin_t,
+                                        lengths, q_out, cache_k, cache_v, out,
+                                        B, T, H, KV, Smax, hd, st, scale, s);
+  } else if (dtype == repro::DTYPE_F32) {
+    err = launch_chunked<float>(q, k, v, q_w, k_w, eps, cos_t, sin_t,
+                                lengths, q_out, cache_k, cache_v, out, B, T,
+                                H, KV, Smax, hd, st, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }

@@ -12,6 +12,16 @@ Where q, k or v requires grad, a CUDA or meta tensor goes through
 :class:`FlashAttentionFn`: the kernel forward, and a backward that
 recomputes the plain version over blocks of ``BACKWARD_ROWS`` query rows
 with the forward's mask, window, scale and query offset.
+
+``chunked_attention`` is the entry of the continuous batcher's chunked
+prefill (a decode step with T > 1 new tokens a row, against the dense
+cache view): on a CUDA tensor two launches, a prologue that applies the
+qk-norm and RoPE to the new q and k and writes the new k and v into the
+cache view at each row's offset, then the attention kernel with per-row
+query offsets; on a CPU tensor, or with ``impl="reference"``, its plain
+version (``ref.chunked_attention_ref``).  ``chunked_fits`` says which
+shapes the kernel takes; ``models/attention`` keeps the plain path for the
+rest.  Inference only: nothing here takes a gradient.
 """
 from __future__ import annotations
 
@@ -22,7 +32,8 @@ import torch
 
 from repro_torch.kernels import build, local, report
 from repro_torch.kernels.autograd import recompute_grads
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (chunked_attention_ref,
+                                                      flash_attention_ref)
 
 LIB = build.CudaLibrary("flash_attention.cu", {
     "repro_flash_attention": [
@@ -30,8 +41,12 @@ LIB = build.CudaLibrary("flash_attention.cu", {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "repro_flash_attention_chunked": [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 7 + [ctypes.c_char_p, ctypes.c_float,
+                             ctypes.c_float, ctypes.c_void_p],
 })
 _pack_strides = struct.Struct("12q").pack   # the entry point's strides[12]
+_pack_chunked = struct.Struct("15q").pack   # the chunked entry's strides[15]
 HEAD_DIMS = (64, 128, 160, 256)
 # returned by the entry point where the bf16 kernel cannot take an input
 ERR_UNSUPPORTED = -1
@@ -43,6 +58,9 @@ BACKWARD_ROWS = 1024
 # Launches of the kernel, counted where the wrapper launches it (runs of
 # the plain version do not count).
 LAUNCHES = 0
+# Launches of the chunked-prefill entry's kernels on the card, two a call
+# (the prologue, then the attention), counted apart from LAUNCHES.
+CHUNKED_LAUNCHES = 0
 
 
 def block_rows(hd: int) -> int:
@@ -215,3 +233,126 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def chunked_fits(H: int, KV: int, hd: int, dtype) -> bool:
+    """Whether the chunked entry's kernels take these heads: hd in
+    ``HEAD_DIMS``, GQA groups of at most ``block_rows(hd)`` q heads, bf16
+    or fp32."""
+    return (dtype in build.DTYPE_CODE and hd in HEAD_DIMS and KV > 0
+            and H % KV == 0 and H // KV <= block_rows(hd))
+
+
+def _check_chunked(q, k, v, cache_k, cache_v, lengths, q_norm, k_norm,
+                   cos, sin):
+    B, T, H, hd = q.shape
+    Smax, KV = cache_k.shape[1], cache_k.shape[2]
+    if not chunked_fits(H, KV, hd, q.dtype):
+        raise ValueError(f"the chunked flash attention kernel cannot take "
+                         f"H={H}, KV={KV}, hd={hd}, {q.dtype}")
+    if (k.shape != (B, T, KV, hd) or v.shape != k.shape
+            or cache_k.shape != (B, Smax, KV, hd)
+            or cache_v.shape != cache_k.shape or lengths.shape != (B,)):
+        raise ValueError(f"chunked attention shapes: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, cache "
+                         f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)},"
+                         f" lengths {tuple(lengths.shape)}")
+    for name, t in (("k", k), ("v", v), ("cache_k", cache_k),
+                    ("cache_v", cache_v), ("q_norm", q_norm),
+                    ("k_norm", k_norm)):
+        if t is not None and (t.dtype != q.dtype or t.device != q.device):
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, q is "
+                            f"{q.dtype} on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("cache_k", cache_k),
+                    ("cache_v", cache_v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: last dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+            (t.storage_offset() * 2) % 16 == 0
+            and all((st * 2) % 16 == 0 for st in t.stride()[:3])
+            for t in (cache_k, cache_v)):
+        raise ValueError("TMA cannot read the strides of the cache view")
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous() or \
+            lengths.device != q.device:
+        raise TypeError("lengths must be contiguous int32 on q's device")
+    for name, t in (("q_norm", q_norm), ("k_norm", k_norm)):
+        if t is not None and (t.shape != (hd,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: a contiguous [{hd}] scale")
+    if (cos is None) != (sin is None):
+        raise ValueError("cos and sin go together")
+    for t in (cos, sin):
+        if t is not None and (t.shape != (B, T, hd // 2)
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"cos / sin: contiguous fp32 [{B}, {T}, "
+                             f"{hd // 2}] on q's device")
+
+
+def chunked_attention_cuda(q, k, v, cache_k, cache_v, lengths, *,
+                           q_norm=None, k_norm=None, eps: float = 1e-6,
+                           cos=None, sin=None):
+    """Launch the chunked entry (prologue, then attention with per-row
+    query offsets); arguments as ``ref.chunked_attention_ref``.  Writes
+    the new k, v into the cache view and returns the attention
+    [B,T,H,hd]."""
+    global CHUNKED_LAUNCHES
+    _check_chunked(q, k, v, cache_k, cache_v, lengths, q_norm, k_norm,
+                   cos, sin)
+    B, T, H, hd = q.shape
+    Smax, KV = cache_k.shape[1], cache_k.shape[2]
+    q_out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty_like(q_out)
+    strides = _pack_chunked(*q.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], *cache_k.stride()[:3],
+                            *cache_v.stride()[:3])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = LIB.load().repro_flash_attention_chunked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(q_norm), ptr(k_norm),
+        ptr(cos), ptr(sin), lengths.data_ptr(), q_out.data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
+        build.DTYPE_CODE[q.dtype], B, T, H, KV, Smax, hd, strides,
+        float(eps), sm_scale_of(hd), build.stream_ptr(q.device))
+    if err == ERR_UNSUPPORTED:
+        raise ValueError(f"the chunked flash attention kernel cannot take "
+                         f"H / KV = {H // KV} q heads a kv head at hd {hd}, "
+                         f"or TMA cannot read the cache view")
+    build.check(err, "flash_attention_chunked")
+    CHUNKED_LAUNCHES += 2
+    report("flash_attention_chunked",
+           lambda: chunked_work(q, cache_k, lengths))
+    return out
+
+
+def chunked_work(q, cache_k, lengths):
+    """(FLOPs, bytes) of one chunked call: q.k and p.v over the pairs the
+    per-row offsets admit; q, k, v and the valid cache prefix read once,
+    the output and the new k, v written once."""
+    B, T, H, hd = q.shape
+    KV = cache_k.shape[2]
+    Smax = cache_k.shape[1]
+    pos = (lengths.long().cpu()[:, None] - T
+           + torch.arange(T)[None])                             # [B,T]
+    keys = (pos + 1).clamp(0, Smax)
+    seen = (lengths.long().cpu() - T).clamp(0, Smax)   # before the step
+    es = q.element_size()
+    return (4.0 * H * hd * float(keys.sum()),
+            es * (2 * B * T * H * hd + 4 * B * T * KV * hd
+                  + 2 * float(seen.sum()) * KV * hd))
+
+
+def chunked_attention(q, k, v, cache_k, cache_v, lengths, *, q_norm=None,
+                      k_norm=None, eps: float = 1e-6, cos=None, sin=None,
+                      impl: str = "auto"):
+    """The chunked-prefill step of one layer (``ref.chunked_attention_ref``
+    says what it computes): the kernels on a CUDA tensor with impl
+    "auto", the plain version on the CPU or with "reference"."""
+    if impl not in ("auto", "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    fn = (chunked_attention_cuda if impl == "auto" and q.is_cuda
+          else chunked_attention_ref)
+    return fn(q, k, v, cache_k, cache_v, lengths, q_norm=q_norm,
+              k_norm=k_norm, eps=eps, cos=cos, sin=sin)

@@ -11,9 +11,14 @@ hand-written CUDA kernel:
     (which the continuous batcher arms) and otherwise take the dense
     grouped einsum, as the JAX package does.
 
-Decode with several new tokens per row (chunked prefill) keeps the dense
-``_attn_block``: its per-row query offsets do not fit the flash kernel's
-single offset.
+Decode with several new tokens per row (the continuous batcher's chunked
+prefill) takes K2's chunked entry on a CUDA device where
+:func:`takes_chunked_kernel` says the kernel fits (no window, no M-RoPE,
+an RMS qk-norm or none, the GQA group and head dim K2 takes, off the
+mesh): one prologue launch applies the qk-norm and RoPE and appends the
+new k and v to the cache view, one attention launch takes per-row query
+offsets (:func:`chunked_prefill_attention`).  Everything else, and every
+CPU tensor, keeps the dense path: ``write_kv`` then ``_attn_block``.
 
 Sliding-window layers (``LOCAL_ATTN``) take the same two kernels: the
 full-sequence pass is :func:`causal_attention` with ``window`` (K2 in
@@ -207,6 +212,44 @@ def decode_attention(q, k_cache, v_cache, lengths):
     valid = kv_pos < lengths[:, None]                          # [B,Smax]
     return _attn_block(q, k_cache, v_cache, q_pos, kv_pos.expand(B, Smax),
                        causal=True, kv_valid=valid)
+
+
+def chunked_prefill_fits(cfg, params, T: int, window: int, dtype) -> bool:
+    """The shapes K2's chunked entry takes, read off the layer: several
+    new tokens a row, no window, no M-RoPE, a qk-norm that is an RMSNorm
+    (no bias) or none, and heads the kernel fits
+    (``flash_attention.chunked_fits``)."""
+    norm = params.get("q_norm")
+    return (T > 1 and not window and not cfg.mrope_sections
+            and (norm is None or "bias" not in norm)
+            and flash_ops.chunked_fits(cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim, dtype))
+
+
+def takes_chunked_kernel(x, cfg, params, window: int) -> bool:
+    """Whether a decode call of the attention layer ``params`` on its
+    input x [B, T, D] runs K2's chunked entry: on a CUDA device, off the
+    mesh, where :func:`chunked_prefill_fits`."""
+    return (x.device.type == "cuda" and not shardctx.enabled()
+            and not shardctx.is_dtensor(x)
+            and chunked_prefill_fits(cfg, params, x.shape[1], window,
+                                     x.dtype))
+
+
+def chunked_prefill_attention(q, k, v, cache_k, cache_v, lengths, *,
+                              q_norm=None, k_norm=None, eps: float = 1e-6,
+                              rope=None):
+    """A chunked-prefill step of one layer through K2's chunked entry:
+    q [B,T,H,hd], k, v [B,T,KV,hd] the projections before qk-norm and
+    RoPE, rope the (cos, sin) tables of the step's positions or None.
+    Writes the new k, v into the caches in place (positions past their
+    end dropped).  Returns the attention [B,T,H,hd] and whether the
+    kernels ran (not under ``use_flash_impl("reference")``)."""
+    cos, sin = rope if rope is not None else (None, None)
+    out = flash_ops.chunked_attention(
+        q, k, v, cache_k, cache_v, lengths, q_norm=q_norm, k_norm=k_norm,
+        eps=eps, cos=cos, sin=sin, impl=_FLASH_IMPL)
+    return out, _FLASH_IMPL == "auto"
 
 
 def ring_decode_attention(q, k_ring, v_ring, pos, window: int):

@@ -49,7 +49,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import shardctx
 from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, group_norm_heads, linear,
-                                       mlp_init, norm_init)
+                                       mlp_init, norm_init, rope_cos_sin)
 
 # The recurrent scans on CUDA tensors: "auto" launches the kernels (K4,
 # K5), "reference" takes their plain versions (for comparisons on the
@@ -80,6 +80,10 @@ class Ctx:
     valid: Optional[Any] = None     # [B,S] bool: pad mask for prefill
     cache: Any = None               # this block's cache slice
     mesh_axes: Any = None           # (mesh, dp_axes, tp_axis) or None
+    # values the layers of one forward share (``replace`` keeps the dict):
+    # the chunked prefill's RoPE tables, made by its first layer, and the
+    # count of its layers that took K2's chunked entry
+    memo: dict = dataclasses.field(default_factory=dict)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -130,7 +134,8 @@ def merge_heads(o):
     return y
 
 
-def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
+def _projections(params, x, cfg: cfgs.ModelConfig):
+    """q [B,S,H,hd], k, v [B,S,KV,hd]: the projections alone."""
     hd = cfg.head_dim
     q = split_heads(linear(x, params["wq"], params.get("bq")),
                     cfg.num_heads, hd)
@@ -138,6 +143,11 @@ def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
                     cfg.num_kv_heads, hd)
     v = split_heads(linear(x, params["wv"], params.get("bv")),
                     cfg.num_kv_heads, hd)
+    return q, k, v
+
+
+def _qkv(params, x, cfg: cfgs.ModelConfig, positions):
+    q, k, v = _projections(params, x, cfg)
     if cfg.qk_norm:
         # RMSNorm over each head, after the projection and before RoPE
         q = apply_norm(params["q_norm"], q, cfg.norm_eps)
@@ -195,9 +205,37 @@ def _pad_rows(w, n: int):
     return w.redistribute(mesh, pl)
 
 
+def _chunked_prefill(params, x, ctx: Ctx):
+    """A decode call with several new tokens a row through K2's chunked
+    entry: the projections here, then qk-norm, RoPE, the cache append and
+    the attention in its two launches (``attention.takes_chunked_kernel``
+    decides).  The RoPE tables are made once a forward; a layer whose
+    kernels ran counts itself in ``ctx.memo["chunked_layers"]``."""
+    cfg = ctx.cfg
+    q, k, v = _projections(params, x, cfg)
+    rope = None
+    if cfg.use_rope:
+        rope = ctx.memo.get("rope")
+        if rope is None:
+            rope = ctx.memo["rope"] = rope_cos_sin(
+                ctx.positions, cfg.head_dim, cfg.rope_theta)
+    norms = ((params["q_norm"]["scale"], params["k_norm"]["scale"])
+             if cfg.qk_norm else (None, None))
+    out, kernel = attn.chunked_prefill_attention(
+        q, k, v, ctx.cache["k"], ctx.cache["v"], ctx.lengths,
+        q_norm=norms[0], k_norm=norms[1], eps=cfg.norm_eps, rope=rope)
+    ctx.memo["chunked_layers"] = ctx.memo.get("chunked_layers", 0) + kernel
+    return linear(merge_heads(out), params["wo"], params.get("bo"))
+
+
 def attn_apply(params, x, ctx: Ctx, *, window: int = 0):
     cfg = ctx.cfg
     B, S, _ = x.shape
+    if (ctx.mode == "decode" and tuple(ctx.positions.shape) == (B, S)
+            and attn.takes_chunked_kernel(x, cfg, params, window)):
+        # (a decode call without positions rotates every new token at the
+        # row's last position: the plain path broadcasts that)
+        return _chunked_prefill(params, x, ctx), ctx.cache
     q, k, v = _qkv(params, x, cfg, ctx.positions)
     Hp = _padded_heads(cfg)
     if Hp != cfg.num_heads:

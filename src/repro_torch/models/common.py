@@ -185,29 +185,44 @@ def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """Rotate x [..., S, H, hd] by positions [..., S], or with M-RoPE by
-    positions [..., S, 3]: rotary dim i takes the (t, h, w) stream of its
-    section, sections of ``mrope_sections`` dims in order (Qwen2-VL).
-    Math in fp32."""
-    half = x.shape[-1] // 2
-    inv = rope_inv_freq(x.shape[-1], theta, x.device)          # [half]
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope_sections: Tuple[int, ...] = ()):
+    """The fp32 rotation tables (cos, sin) [..., S, head_dim / 2] of
+    positions [..., S] (or [..., S, 3] with M-RoPE: rotary dim i takes the
+    (t, h, w) stream of its section, sections of ``mrope_sections`` dims
+    in order)."""
+    half = head_dim // 2
+    inv = rope_inv_freq(head_dim, theta, positions.device)     # [half]
     if mrope_sections:
         if sum(mrope_sections) != half:
             raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
                              f"to the rotary half {half}")
         sec = torch.cat([torch.full((n,), i, dtype=torch.long,
-                                    device=x.device)
+                                    device=positions.device)
                          for i, n in enumerate(mrope_sections)])   # [half]
         angles = positions.float()[..., sec] * inv             # [..., S, half]
     else:
         angles = positions.float()[..., None] * inv            # [..., S, half]
-    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, half]
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """The half-split rotation of x [..., hd] by fp32 tables cos, sin
+    that broadcast to [..., hd / 2]; math in fp32, result in x's dtype."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return y.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Rotate x [..., S, H, hd] by positions [..., S], or with M-RoPE by
+    positions [..., S, 3] (see :func:`rope_cos_sin`).  Math in fp32."""
+    cos, sin = rope_cos_sin(positions, x.shape[-1], theta,
+                            mrope_sections)
+    return rotate(x, cos[..., None, :], sin[..., None, :])  # [..., S, 1, half]
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

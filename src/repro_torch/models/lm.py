@@ -128,7 +128,9 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
     """Run the backbone.  Returns a dict with hidden [B,S,D] (train),
     last_hidden [B,D] (prefill) or hidden [B,S,D] (decode), the cache
     (prefill / decode) and ``aux``, the summed load-balance loss of the
-    mixture-of-experts layers (an fp32 scalar, 0 without them).
+    mixture-of-experts layers (an fp32 scalar, 0 without them); a decode
+    call also gives ``chunked_layers``, its layers that took K2's chunked
+    entry (``blocks.attn_apply``).
 
     In train mode with ``remat`` each period's blocks run under
     activation checkpointing (recomputed in the backward pass, so their
@@ -195,7 +197,8 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
     if mode == "prefill":
         return {"last_hidden": last_rows(x, lengths), "cache": cache,
                 "aux": aux}
-    return {"hidden": x, "cache": cache, "aux": aux}
+    return {"hidden": x, "cache": cache, "aux": aux,
+            "chunked_layers": ctx.memo.get("chunked_layers", 0)}
 
 
 def cache_capacity(cache) -> int:

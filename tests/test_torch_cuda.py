@@ -39,6 +39,7 @@ from repro_torch.kernels.similarity_topk import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.similarity_topk.ref import topk_flips  # noqa: E402
 from repro_torch.configs import base as cfgs  # noqa: E402
 from repro_torch.models import attention, blocks, model_zoo  # noqa: E402
+from repro_torch.models.common import rope_cos_sin  # noqa: E402
 from repro_torch.semindex import (IvfConfig, IvfFlatIndex,  # noqa: E402
                                   SemanticIndexManager, SemIndexConfig)
 
@@ -51,6 +52,13 @@ TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
 CROSS_TOL = {torch.float32: TOL[torch.float32],
              torch.bfloat16: dict(rtol=0, atol=1e-2)}
 TOPK_TOL = 1e-5
+# K2's chunked entry in bf16, besides TOL: rel. L2 of the output and of
+# the k cache to the plain version.  The card read 0.0027 at the cell's
+# shapes (the qk-norm's sums in another order move a bf16 q or k by one
+# unit in the last place; both round p to bf16 before P V); a mask that
+# drops or adds one key moves a row that sees n keys by ~1/sqrt(n), past
+# 0.02 up to 2,048 keys, where TOL's 5e-2 elementwise would pass it
+CHUNK_REL_TOL = 1e-2
 
 
 @pytest.fixture
@@ -381,6 +389,181 @@ def test_flash_kernel_rejects_what_tma_cannot_read(cuda):
                         torch.bfloat16, cuda)
     with pytest.raises(ValueError):
         flash_ops.flash_attention(wide[..., :64], k, v)   # 130-byte rows
+
+
+# ---------------------------------------------------------------------------
+# K2's chunked-prefill entry (the continuous batcher's prefill steps)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_case(seed, B, T, H, KV, hd, Smax, lengths, dtype, device, norm):
+    """Projections, caches, norm scales, lengths and RoPE tables of one
+    chunked step (rope_theta 1e6, positions lengths - T + t)."""
+    q, k, v, ck, cv, w = _randn(seed, [
+        (B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd), (B, Smax, KV, hd),
+        (B, Smax, KV, hd), (2, hd)], dtype, device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    pos = lens[:, None] - T + torch.arange(T, dtype=torch.int32,
+                                           device=device)[None]
+    cos, sin = rope_cos_sin(pos, hd, 1e6)
+    norms = (1 + 0.2 * w[0], 1 + 0.2 * w[1]) if norm else (None, None)
+    return (q, k, v, ck, cv, lens), dict(q_norm=norms[0], k_norm=norms[1],
+                                         eps=1e-6, cos=cos, sin=sin), pos
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _check_chunked(args, kw, pos, dtype):
+    """The kernels against the plain version on clones of the caches:
+    outputs and caches within TOL and, in bf16, CHUNK_REL_TOL, queries
+    before position 0 exactly 0, the v cache equal; one chunked call
+    counted as its two launches, K2's own count unchanged."""
+    q, k, v, ck, cv, lens = args
+    kc, vc, kr, vr = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    before = (flash_ops.LAUNCHES, flash_ops.CHUNKED_LAUNCHES)
+    out = flash_ops.chunked_attention(q, k, v, kc, vc, lens, **kw)
+    assert (flash_ops.LAUNCHES, flash_ops.CHUNKED_LAUNCHES) == (
+        before[0], before[1] + 2)
+    ref = flash_ops.chunked_attention(q, k, v, kr, vr, lens, **kw,
+                                      impl="reference")
+    torch.cuda.synchronize()
+    assert flash_ops.CHUNKED_LAUNCHES == before[1] + 2
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert not out[pos < 0].any()
+    torch.testing.assert_close(kc.float(), kr.float(), **TOL[dtype])
+    torch.testing.assert_close(vc, vr, rtol=0, atol=0)
+    if dtype == torch.bfloat16:
+        assert _rel_l2(out, ref) <= CHUNK_REL_TOL
+        assert _rel_l2(kc, kr) <= CHUNK_REL_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_chunked_kernel(cuda, dtype, norm, hd, G):
+    """The chunked entry (prologue: qk-norm, RoPE, cache append; attention
+    with per-row query offsets) against its plain version: T = 32 over 64
+    slots, rows of lengths 0 (a free slot), 17 (queries before position
+    0), 45 and 84 (the chunk overruns the cache)."""
+    args, kw, pos = _chunk_case(40 + hd + G, 4, 32, 2 * G, 2, hd, 64,
+                                [0, 17, 45, 84], dtype, cuda, norm)
+    _check_chunked(args, kw, pos, dtype)
+
+
+@pytest.mark.parametrize("H,KV,hd,norm,nb", [
+    (64, 8, 128, True, 1), (64, 8, 128, True, 8), (64, 8, 128, True, 64),
+    (32, 8, 128, False, 8), (32, 8, 160, False, 8)])
+def test_chunked_kernel_cell_shapes(cuda, H, KV, hd, norm, nb):
+    """The served chunked step as the batcher gives it (B 8, T 32 over nb
+    blocks of 32 slots; free slots at lengths T, rows ragged, one chunk
+    past the view's end) at qwen3-32b's heads (64 q, 8 kv, hd 128,
+    qk-norm), proxy-8b's (32 q, 8 kv, hd 128) and stablelm-12b's (hd
+    160), both without a norm."""
+    S = 32 * nb
+    lengths = [32, 32, S, max(S - 5, 32), min(77, S + 3), S + 31,
+               max(S // 2, 32), 40]
+    args, kw, pos = _chunk_case(50 + nb + hd, 8, 32, H, KV, hd, S, lengths,
+                                torch.bfloat16, cuda, norm)
+    _check_chunked(args, kw, pos, torch.bfloat16)
+
+
+def test_chunked_prefill_step_does_not_sync(cuda):
+    """A chunked decode call of a bf16 model with qk-norm (qwen3-32b's
+    smoke layers at hd 128) runs without a host synchronisation: CUDA's
+    sync debug mode set to "error" raises at any (a boolean index, a
+    ``nonzero``, an ``item``)."""
+    cfg = dataclasses.replace(cfgs.get_smoke_config("qwen3-32b"),
+                              head_dim=128)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(gen)
+    B, T = 4, 32
+    toks = torch.randint(4, cfg.vocab_size, (B, T), generator=gen,
+                         device=cuda)
+    cache = model.init_cache(B, 128, device=cuda)
+    cache["len"] = torch.tensor([0, 5, 64, 100], dtype=torch.int32,
+                                device=cuda)
+    pos = cache["len"][:, None] + torch.arange(T, dtype=torch.int32,
+                                               device=cuda)[None]
+    batch = {"tokens": toks, "positions": pos}
+    model.apply(params, batch, mode="decode", cache=cache)   # build, warm
+    cache["len"] = pos[:, 0].contiguous()
+    torch.cuda.synchronize()
+    n = flash_ops.CHUNKED_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.apply(params, batch, mode="decode", cache=cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out["chunked_layers"] == cfg.num_layers
+    assert flash_ops.CHUNKED_LAUNCHES - n == 2 * cfg.num_layers
+    with pytest.raises(RuntimeError):     # the plain path's write syncs
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with attention.use_flash_impl("reference"):
+                model.apply(params, batch, mode="decode", cache=cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "proxy-8b", "oracle-70b",
+                                  "command-r-35b", "minitron-8b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
+                                  "stablelm-12b"])
+def test_zoo_chunked_prefill_through_the_kernel(cuda, arch):
+    """The batcher's models in fp32 at head_dim 64 (stablelm-12b at 160):
+    a chunked decode step (T = 32, rows at lengths 32, 45 and 72 over 64
+    slots) runs the chunked entry once a layer (two launches, and the
+    forward counts the layer), and its hidden states and caches equal the
+    plain path's within 2e-4."""
+    cfg = dataclasses.replace(cfgs.get_smoke_config(arch), dtype="float32",
+                              head_dim=160 if arch == "stablelm-12b" else 64)
+    model = model_zoo.build(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init_params(gen)
+    B, T, Smax = 3, 32, 64
+    toks = torch.randint(4, cfg.vocab_size, (B, T), generator=gen,
+                         device=cuda)
+    lens = torch.tensor([0, 13, 40], dtype=torch.int32, device=cuda)
+    start = model.init_cache(B, Smax, device=cuda)
+    for c in start["periods"].values():
+        for leaf in c.values():
+            leaf.normal_(generator=gen)
+
+    def run(reference):
+        cache = clone_tree(start)
+        cache["len"] = lens.clone()
+        pos = lens[:, None] + torch.arange(T, dtype=torch.int32,
+                                           device=cuda)[None]
+        ctx = (attention.use_flash_impl("reference") if reference
+               else contextlib.nullcontext())
+        n = flash_ops.CHUNKED_LAUNCHES
+        with ctx:
+            out = model.apply(params, {"tokens": toks, "positions": pos},
+                              mode="decode", cache=cache)
+        return out, flash_ops.CHUNKED_LAUNCHES - n
+
+    (out, n), (ref, n_ref) = run(False), run(True)
+    torch.cuda.synchronize()
+    assert (n, n_ref) == (2 * cfg.num_layers, 0)
+    assert (out["chunked_layers"], ref["chunked_layers"]) == (
+        cfg.num_layers, 0)
+    torch.testing.assert_close(out["hidden"], ref["hidden"],
+                               **TOL[torch.float32])
+    for name, c in out["cache"]["periods"].items():
+        for leaf in c:
+            torch.testing.assert_close(
+                c[leaf], ref["cache"]["periods"][name][leaf],
+                **TOL[torch.float32])
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 # ---------------------------------------------------------------------------

@@ -221,3 +221,29 @@ def test_serving_engine_hands_its_obs_to_its_engines():
         assert eng.obs is se.obs and se.obs.enabled
     finally:
         se.close()
+
+
+def test_engine_spans_covered_length_is_the_interval_overlap():
+    """``tools/engine_spans.py``'s bisection over a busy union gives the
+    covered length of any interval as ``aisqlbench.timeline.overlap``'s
+    scan does."""
+    import importlib.util
+    import random
+    from pathlib import Path
+
+    from aisqlbench import timeline
+    path = Path(__file__).resolve().parents[1] / "tools" / "engine_spans.py"
+    spec = importlib.util.spec_from_file_location("engine_spans", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rng = random.Random(3)
+    merged = timeline.union(
+        (a, a + rng.uniform(0, 500))
+        for a in (rng.uniform(0, 1e6) for _ in range(500)))
+    upto = tool.covered_upto(merged)
+    for _ in range(500):
+        a = rng.uniform(-1e3, 1.1e6)
+        b = a + rng.uniform(0, 5e4)
+        assert upto(b) - upto(a) == pytest.approx(
+            timeline.overlap(a, b, merged), abs=1e-6)
+    assert tool.covered_upto([])(5.0) == 0.0

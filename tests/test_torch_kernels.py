@@ -211,6 +211,248 @@ def test_model_causal_attention_matches_jax(Sq, Skv, window, chunk, dtype):
 
 
 # ---------------------------------------------------------------------------
+# K2's chunked-prefill entry: plain version vs the JAX package's decode
+# step with T > 1 new tokens a row (_qkv, write_kv, decode_attention)
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from repro.configs import base as jcfgs  # noqa: E402
+from repro.models import blocks as jblocks  # noqa: E402
+from repro_torch.configs import base as tcfgs  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    chunked_attention_ref  # noqa: E402
+from repro_torch.models import blocks as tblocks  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models.common import rope_cos_sin  # noqa: E402
+
+# rows of a chunked step at T new tokens over Smax slots: a free slot
+# (lengths 0: every query before the cache, nothing written), a prompt
+# shorter than the chunk (queries before position 0 and after it), one
+# inside the cache, one whose chunk overruns its end (positions dropped)
+CHUNK_LENGTHS = [0, 17, 45, 84]
+
+
+def _chunk_step(hd, G, KV, norm, Smax, lengths, T, dtype, seed):
+    """One chunked step of one layer in both packages on the same numpy
+    inputs: (torch out, torch caches, jax out, jax caches, positions)."""
+    B, D = len(lengths), 64
+    H = G * KV
+    rng = np.random.default_rng(seed)
+    arrs = {"x": (B, T, D), "wq": (D, H * hd), "wk": (D, KV * hd),
+            "wv": (D, KV * hd), "ck": (B, Smax, KV, hd),
+            "cv": (B, Smax, KV, hd)}
+    a = {k: (rng.standard_normal(s) / (np.sqrt(D) if k[0] == "w" else 1.0)
+             ).astype(np.float32) for k, s in arrs.items()}
+    a["qn"] = (1.0 + 0.2 * rng.standard_normal(hd)).astype(np.float32)
+    a["kn"] = (1.0 + 0.2 * rng.standard_normal(hd)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    pos = lens[:, None] - T + np.arange(T, dtype=np.int32)[None]
+    kw = dict(name="chunk", family="dense", num_layers=1, d_model=D,
+              num_heads=H, num_kv_heads=KV, d_ff=D, vocab_size=8,
+              head_dim=hd, qk_norm=norm, rope_theta=1e6)
+    j = {k: jnp.asarray(v).astype(JD[dtype]) for k, v in a.items()}
+    jp = {"wq": j["wq"], "wk": j["wk"], "wv": j["wv"]}
+    if norm:
+        jp["q_norm"], jp["k_norm"] = {"scale": j["qn"]}, {"scale": j["kn"]}
+    jcfg = jcfgs.ModelConfig(**kw)
+    q, k, v = jblocks._qkv(jp, j["x"], jcfg, jnp.asarray(pos))
+    jlen = jnp.asarray(lens)
+    jck, jcv = jattn.write_kv(j["ck"], j["cv"], k, v, jlen - T)
+    j_out = jattn.decode_attention(q, jck, jcv, jlen)
+
+    t = {k: torch.from_numpy(v).to(TD[dtype]) for k, v in a.items()}
+    tq = (t["x"] @ t["wq"]).reshape(B, T, H, hd)
+    tk = (t["x"] @ t["wk"]).reshape(B, T, KV, hd)
+    tv = (t["x"] @ t["wv"]).reshape(B, T, KV, hd)
+    cos, sin = rope_cos_sin(torch.from_numpy(pos), hd, 1e6)
+    ck, cv = t["ck"].clone(), t["cv"].clone()
+    before = (flash_ops.LAUNCHES, flash_ops.CHUNKED_LAUNCHES)
+    out = flash_ops.chunked_attention(
+        tq, tk, tv, ck, cv, torch.from_numpy(lens),
+        q_norm=t["qn"] if norm else None, k_norm=t["kn"] if norm else None,
+        eps=jcfg.norm_eps, cos=cos, sin=sin)
+    assert (flash_ops.LAUNCHES, flash_ops.CHUNKED_LAUNCHES) == before
+    return out, (ck, cv, t["ck"], t["cv"]), j_out, (jck, jcv), pos
+
+
+def _check_chunk_step(step, Smax, T, dtype):
+    """Queries at positions >= 0 and the caches equal JAX's within the
+    tolerance; queries before position 0 (no key: the dense block averages
+    every slot there, the kernels' contract is zeros) output exactly 0,
+    and the slots JAX's scatter wraps a negative position to keep the
+    plain version's initial contents (it drops the position)."""
+    out, (ck, cv, ck0, cv0), j_out, (jck, jcv), pos = step
+    seen = pos >= 0
+    np.testing.assert_allclose(_np(out)[seen], _np(j_out)[seen],
+                               **TOL[dtype])
+    assert not _np(out)[~seen].any()
+    wrapped = np.zeros(ck.shape[:2], bool)
+    for b, p in zip(*np.nonzero(~seen)):
+        wrapped[b, pos[b, p] + Smax] = True
+    for got, want, init in ((ck, jck, ck0), (cv, jcv, cv0)):
+        np.testing.assert_allclose(_np(got)[~wrapped], _np(want)[~wrapped],
+                                   **TOL[dtype])
+        np.testing.assert_array_equal(_np(got)[wrapped], _np(init)[wrapped])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_chunked_plain_matches_jax(G, hd, norm, dtype):
+    """The chunked entry's plain version (qk-norm or none, RoPE, the cache
+    append at each row's offset, attention with per-row query offsets)
+    against the JAX package's chunked decode step, T = 32 over 64 slots,
+    ragged lengths (CHUNK_LENGTHS)."""
+    T, Smax = 32, 64
+    step = _chunk_step(hd, G, 2, norm, Smax, CHUNK_LENGTHS, T, dtype,
+                       seed=hd * G + norm)
+    _check_chunk_step(step, Smax, T, dtype)
+
+
+@pytest.mark.parametrize("nb,lengths", [
+    (1, [0, 32, 20, 40]),             # one 32-slot block: a chunk fills it
+    (64, [0, 32, 1000, 2048, 2050]),  # 2,048 slots: the cell's widest view
+])
+def test_chunked_plain_matches_jax_cell_width(nb, lengths):
+    """The served chunk (T = 32, qk-norm, hd 128, G 8) over the narrowest
+    and the widest cache view the batcher gathers (nb blocks of 32)."""
+    T, Smax = 32, 32 * nb
+    step = _chunk_step(128, 8, 1, True, Smax, lengths, T, "float32",
+                       seed=nb)
+    _check_chunk_step(step, Smax, T, "float32")
+
+
+def _full(arch, **kw):
+    return dataclasses.replace(tcfgs.get_config(arch), **kw)
+
+
+@pytest.mark.parametrize("cfg_of,T,window,dtype,takes", [
+    (lambda: _full("qwen3-32b"), 32, 0, torch.bfloat16, True),
+    (lambda: _full("proxy-8b"), 32, 0, torch.bfloat16, True),
+    (lambda: _full("oracle-70b"), 32, 0, torch.bfloat16, True),
+    (lambda: _full("command-r-35b"), 32, 0, torch.bfloat16, True),
+    (lambda: _full("qwen2-moe-a2.7b"), 32, 0, torch.bfloat16, True),
+    (lambda: _full("stablelm-12b"), 32, 0, torch.bfloat16, True),  # hd 160
+    (lambda: _full("qwen3-32b"), 32, 0, torch.float32, True),
+    (lambda: _full("qwen3-32b"), 1, 0, torch.bfloat16, False),     # K1's
+    (lambda: _full("recurrentgemma-9b"), 32, 2048, torch.bfloat16, False),
+    (lambda: _full("qwen2-vl-7b"), 32, 0, torch.bfloat16, False),  # M-RoPE
+    (lambda: _full("qwen3-32b", head_dim=96), 32, 0, torch.bfloat16,
+     False),                                          # hd not K2's
+    (lambda: _full("recurrentgemma-9b", num_heads=128), 32, 0,
+     torch.bfloat16, False),                          # G 128 > BM 64
+    (lambda: _full("qwen3-32b"), 32, 0, torch.float16, False),
+    (lambda: _full("qwen3-32b", use_layernorm=True), 32, 0, torch.bfloat16,
+     False),                                          # LayerNorm qk-norm
+])
+def test_chunked_kernel_dispatch_rule(cfg_of, T, window, dtype, takes):
+    """Which decode calls K2's chunked entry takes on the card (read off
+    the layer's params and config, no model name): several new tokens a
+    row, no window, no M-RoPE, an RMS qk-norm or none, hd in HEAD_DIMS, G
+    <= BM, bf16 or fp32.  A CPU tensor always keeps the plain path."""
+    cfg = cfg_of()
+    params = tblocks.attn_init(torch.Generator().manual_seed(0),
+                               dataclasses.replace(cfg, d_model=8),
+                               torch.float32)
+    if cfg.use_layernorm and cfg.qk_norm:
+        params["q_norm"]["bias"] = torch.zeros(cfg.head_dim)
+    assert attention.chunked_prefill_fits(cfg, params, T, window,
+                                          dtype) is takes
+    x = torch.zeros((2, T, 8), dtype=dtype)
+    assert attention.takes_chunked_kernel(x, cfg, params, window) is False
+
+
+def _chunked_route_on_cpu(monkeypatch):
+    """Make the CPU take the chunked route (its plain version), counting
+    each call as the card's launch would."""
+    fits = attention.chunked_prefill_fits
+    monkeypatch.setattr(attention, "takes_chunked_kernel",
+                        lambda x, cfg, params, window: fits(
+                            cfg, params, x.shape[1], window, x.dtype))
+    plain = flash_ops.chunked_attention
+
+    def counted(*a, **kw):
+        flash_ops.CHUNKED_LAUNCHES += 2
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(flash_ops, "chunked_attention", counted)
+
+
+@pytest.mark.parametrize("positions", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,hd", [("qwen3-32b", 64), ("proxy-8b", 128),
+                                     ("stablelm-12b", 160)])
+def test_chunked_route_is_the_plain_decode_bit_for_bit(arch, hd, dtype,
+                                                       positions,
+                                                       monkeypatch):
+    """The model's chunked route (projections, the RoPE tables made once a
+    forward, the entry's plain version) gives the plain decode path's
+    hidden states and caches bit for bit, on rows as the batcher gives
+    them (lengths >= T; one chunk overruns the cache).  A call without
+    positions (every new token rotated at the row's last position) keeps
+    the plain path."""
+    cfg = dataclasses.replace(tcfgs.get_smoke_config(arch), head_dim=hd,
+                              dtype="float32" if dtype == torch.float32
+                              else "bfloat16")
+    model = model_zoo.build(cfg)
+    params = model.init_params(torch.Generator().manual_seed(1))
+    B, T, Smax = 3, 8, 32
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(4, cfg.vocab_size, (B, T), generator=gen)
+    lens = torch.tensor([0, 13, 28], dtype=torch.int32)   # 36 overruns
+
+    def run():
+        cache = model.init_cache(B, Smax)
+        for leaf in cache["periods"]["b0"].values():
+            leaf.copy_(torch.randn(leaf.shape, generator=torch.Generator()
+                                   .manual_seed(3)).to(leaf.dtype))
+        cache["len"] = lens.clone()
+        batch = {"tokens": toks}
+        if positions:
+            batch["positions"] = (lens[:, None]
+                                  + torch.arange(T, dtype=torch.int32)[None])
+        out = model.apply(params, batch, mode="decode", cache=cache)
+        return (out["hidden"], out["cache"]["periods"]["b0"],
+                out["chunked_layers"])
+
+    plain_h, plain_c, plain_n = run()
+    n = flash_ops.CHUNKED_LAUNCHES
+    _chunked_route_on_cpu(monkeypatch)
+    h, c, layers = run()
+    assert plain_n == 0 and layers == cfg.num_layers * positions
+    assert flash_ops.CHUNKED_LAUNCHES - n == 2 * layers
+    assert torch.equal(h, plain_h)
+    assert all(torch.equal(c[k], plain_c[k]) for k in ("k", "v"))
+
+
+def test_batcher_counts_prefill_layers_through_the_kernel(monkeypatch):
+    """``stats()["prefill_attn_kernel_layers"]`` counts the layers of
+    prefill steps that took the chunked entry (all of them on a model the
+    rule admits); the results are those of the plain route."""
+    from repro_torch.inference.backend import SCORE, Request
+    from repro_torch.inference.engine import TorchInferenceEngine
+
+    def serve():
+        eng = TorchInferenceEngine(
+            dataclasses.replace(tcfgs.get_smoke_config("qwen3-32b"),
+                                head_dim=64), device="cpu", max_batch=2,
+            max_seq=96, backend="continuous")
+        reqs = [Request("x" * n, eng.arch, SCORE, request_id=i)
+                for i, n in enumerate((70, 20, 41))]
+        out = eng.submit_batch(reqs)
+        return [r.score for r in out], eng.backend_stats()
+
+    plain, st0 = serve()
+    _chunked_route_on_cpu(monkeypatch)
+    got, st = serve()
+    assert st0["prefill_attn_kernel_layers"] == 0
+    assert st["prefill_attn_kernel_layers"] == 2 * st["prefill_steps"] > 0
+    assert got == plain
+
+
+# ---------------------------------------------------------------------------
 # K4: RG-LRU scan, plain version vs JAX ref and Pallas (interpret)
 # ---------------------------------------------------------------------------
 

@@ -29,6 +29,7 @@ Needs a CUDA card and the cell's memory; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import statistics
 import subprocess
@@ -55,11 +56,30 @@ def steps_of(waves, lo=None, hi=None):
     return sorted(out, key=lambda s: s["t0"])
 
 
+def covered_upto(merged):
+    """t -> the length of (-inf, t] that ``merged`` (sorted, disjoint
+    intervals: a ``timeline.union``) covers, by bisection over running
+    sums: a traced window holds ~10^5-10^6 busy intervals and a few
+    thousand spans, too many for a scan of the intervals a span."""
+    starts = [x for x, _ in merged]
+    cum = [0.0]
+    for x, y in merged:
+        cum.append(cum[-1] + (y - x))
+
+    def upto(t):
+        i = bisect.bisect_right(starts, t)
+        if i == 0:
+            return 0.0
+        x, y = merged[i - 1]
+        return cum[i - 1] + min(t, y) - x
+    return upto
+
+
 def phase_split(steps, off=None, busy=None):
     """Per phase, the mean a step of host ms, device ms and (given the
     device's busy union in profiler ns) card idle ms, with the whole step."""
-    from aisqlbench import timeline
     rows = {}
+    busy_upto = None if busy is None else covered_upto(busy)
 
     def add(name, t0, t1, dev):
         r = rows.setdefault(name, {"n": 0, "host_ms": 0.0, "device_ms": 0.0,
@@ -69,7 +89,7 @@ def phase_split(steps, off=None, busy=None):
         r["device_ms"] += dev or 0.0
         if busy is not None:
             a, b = t0 * 1e9 + off, t1 * 1e9 + off
-            r["idle_ms"] += (b - a - timeline.overlap(a, b, busy)) / 1e6
+            r["idle_ms"] += (b - a - (busy_upto(b) - busy_upto(a))) / 1e6
 
     for s in steps:
         add("engine.step", s["t0"], s["t1"], None)
