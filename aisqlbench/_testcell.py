@@ -1,12 +1,14 @@
 """A throwaway copy of the benchmark for the CPU tests: the data files of
 ``aisqlbench/`` and ``BENCHMARK.json`` copied into a temporary directory,
-then cells added to it the way a later change adds one, by new files and
-new entries only.  Runs there take the configurations' smoke models."""
+then cells, configurations and architectures added to it the way a later
+change adds one, by new files and new entries only.  Runs there take the
+configurations' smoke models."""
 from __future__ import annotations
 
 import json
 import shutil
 from pathlib import Path
+from typing import Any, Dict
 
 from aisqlbench import spec
 
@@ -24,10 +26,21 @@ def copy_bench(tmp: Path) -> Path:
     """The benchmark's data files and ``BENCHMARK.json`` under ``tmp``;
     returns the copy's folder."""
     folder = tmp / "aisqlbench"
-    for sub in ("configs", "traffic", "workloads", "metrics"):
+    for sub in ("configs", "archs", "traffic", "workloads", "metrics"):
         shutil.copytree(spec.HERE / sub, folder / sub)
     shutil.copy(spec.ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
     return folder
+
+
+def add_arch(tmp: Path, name: str, source: str) -> None:
+    """Add the architecture ``name`` with the module text ``source``."""
+    (tmp / "aisqlbench" / "archs" / f"{name}.py").write_text(source)
+
+
+def add_config(tmp: Path, conf: Dict[str, Any]) -> None:
+    """Add a configuration file (its entry comes with its first cell)."""
+    (tmp / "aisqlbench" / "configs" / f"{conf['name']}.json").write_text(
+        json.dumps(conf, indent=1))
 
 
 def add_cell(tmp: Path, config: str, mix: str, *, limits=None,

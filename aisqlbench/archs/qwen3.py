@@ -1,13 +1,20 @@
-"""Plain PyTorch reference of the served decoder, in fp32, layer by layer.
+"""The Qwen3 decoder: its seeded weights, its plain reference and its
+count of useful operations, for a configuration file that says
+``"arch": "qwen3"``.
 
-It holds nothing of the program: it makes each layer's weights again from
-the seed (``weights.draw``), reads token ids, and returns logits at the
-positions asked for.  No cache, no batching of steps: every row runs
-whole, causal attention over its own tokens, tokens packed without
-padding.
+Weights (``groups``): each layer pre-RMSNorm ``ln1`` / ``ln2``, the
+attention projections, qk-norm scales where the model has them, and a
+dense SwiGLU ``mlp``; drawn by ``weights.draw``.
 
-The equations are the published Qwen3 decoder layer: pre-RMSNorm, GQA
-with RoPE on the half-split rotary layout, qk-norm, SwiGLU.
+The reference is plain PyTorch in fp32, layer by layer.  It holds nothing
+of the program: it makes each layer's weights again from the seed, reads
+token ids, and returns logits at the positions asked for.  No cache, no
+batching of steps: every row runs whole, causal attention over its own
+tokens, tokens packed without padding.  The equations are the published
+Qwen3 decoder layer: pre-RMSNorm, GQA with RoPE on the half-split rotary
+layout, qk-norm, SwiGLU.  Another architecture may subclass ``Reference``
+and replace ``_groups`` (its weights), ``_layer`` (a whole layer, given
+its index) or ``_ffn`` (the feed-forward alone).
 
 ``precision="fp8"`` is the control: every matrix product of the layers
 and of the output head takes its weights per output column and its inputs
@@ -34,6 +41,56 @@ def _q8(x: torch.Tensor, dim: int) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).float() * s
 
 
+def attn_leaves(m: Dict) -> List[weights.Leaf]:
+    """A layer's two pre-norms and its attention, for the ``model``
+    section of a configuration file."""
+    d, hd = m["d_model"], m["head_dim"]
+    q, kv = m["num_heads"] * hd, m["num_kv_heads"] * hd
+    out = [weights.norm("ln1.scale", d), weights.norm("ln2.scale", d),
+           weights.dense("attn.wq", d, q), weights.dense("attn.wk", d, kv),
+           weights.dense("attn.wv", d, kv), weights.dense("attn.wo", q, d)]
+    if m.get("qk_norm"):
+        out += [weights.norm("attn.q_norm.scale", hd),
+                weights.norm("attn.k_norm.scale", hd)]
+    return out
+
+
+def layer_leaves(m: Dict, i: int = 0) -> List[weights.Leaf]:
+    """Layer ``i``'s leaves: ``attn_leaves`` and a dense SwiGLU ``mlp``."""
+    return attn_leaves(m) + weights.swiglu("mlp", m["d_model"], m["d_ff"])
+
+
+def groups(m: Dict) -> List[weights.Group]:
+    """Every group of leaves in drawing order: (group name, its leaves
+    with names relative to the parameter tree's root)."""
+    return weights.decoder_groups(m, layer_leaves)
+
+
+# -- the model's useful operations ------------------------------------------
+
+def matmul_params(m: Dict) -> int:
+    """Weights a token multiplies through in one layer: the attention
+    projections and the SwiGLU feed-forward."""
+    d, hd = m["d_model"], m["head_dim"]
+    return (2 * d * m["num_heads"] * hd + 2 * d * m["num_kv_heads"] * hd
+            + 3 * d * m["d_ff"])
+
+
+def step_flops(m: Dict, start: int, count: int, logits: int) -> float:
+    """Useful operations of one row in one step: ``count`` tokens taken in
+    at positions ``start`` .. ``start + count - 1``, 2 x the active weights
+    each, attention over the valid keys (position + 1 of them, 4 hd a key
+    and head: q.k and p.v), and the output head at ``logits`` positions
+    (a prompt's last token)."""
+    layers = m["num_layers"]
+    keys = count * start + count * (count + 1) / 2
+    return (2.0 * matmul_params(m) * count * layers
+            + 4.0 * m["num_heads"] * m["head_dim"] * keys * layers
+            + 2.0 * m["d_model"] * m["vocab_size"] * logits)
+
+
+# -- the plain reference ------------------------------------------------------
+
 class Reference:
     def __init__(self, model: Dict, seed: int, device, precision: str = "fp32"):
         if precision not in ("fp32", "fp8"):
@@ -44,6 +101,9 @@ class Reference:
         self.precision = precision
 
     # -- pieces ------------------------------------------------------------
+    def _groups(self) -> List[weights.Group]:
+        return groups(self.m)
+
     def _w(self, group) -> Dict[str, torch.Tensor]:
         out = {}
         for name, x in weights.draw(self.m, self.seed, group, self.device):
@@ -103,6 +163,18 @@ class Reference:
                     torch.softmax(s, -1) @ vr[c]).transpose(0, 1)
         return self._mm(out.reshape(-1, H * hd), w["attn.wo"])
 
+    def _ffn(self, h, w):
+        """The feed-forward of a block of tokens' normed states."""
+        return self._swiglu(h, w, "mlp")
+
+    def _layer(self, x, w, bounds, i: int):
+        """Layer ``i`` over the packed rows x [T, d]; returns x after it."""
+        x = x + self._attention(self._rms(x, w["ln1.scale"]), w, bounds)
+        h = self._rms(x, w["ln2.scale"])
+        for a in range(0, h.shape[0], 2048):
+            x[a:a + 2048] += self._ffn(h[a:a + 2048], w)
+        return x
+
     # -- the pass ----------------------------------------------------------
     @torch.no_grad()
     def run(self, rows: Sequence[Sequence[int]],
@@ -114,7 +186,7 @@ class Reference:
         allow = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            groups = weights.groups(m)
+            groups = self._groups()
             bounds, lo = [], 0
             for r in rows:
                 bounds.append((lo, lo + len(r)))
@@ -124,14 +196,10 @@ class Reference:
             emb = dict(weights.draw(m, self.seed, groups[0], dev))["embed.w"]
             x = emb[tokens].float()
             del emb
-            for g in groups[1:1 + m["num_layers"]]:
+            for i, g in enumerate(groups[1:1 + m["num_layers"]]):
                 w = self._w(g)
-                x = x + self._attention(self._rms(x, w["ln1.scale"]), w,
-                                        bounds)
-                h = self._rms(x, w["ln2.scale"])
-                for a in range(0, h.shape[0], 2048):
-                    x[a:a + 2048] += self._swiglu(h[a:a + 2048], w, "mlp")
-                del w, h
+                x = self._layer(x, w, bounds, i)
+                del w
             tail = {}
             for g in groups[1 + m["num_layers"]:]:
                 tail.update(self._w(g))

@@ -37,16 +37,16 @@ def readings(workload, seeds, control, seconds, *, device="cuda",
                       sum(not r["ok"] for r in recs))
         print(f"seed {seed}: {len(recs)} queries, {len(kept[seed][0])} rows "
               f"sampled", file=log)
-    model, tie = st.model, st.tie
+    arch, model, tie = st.arch, st.model, st.tie
     st.free()
     out = []
     for seed in seeds:
         rows, failed = kept[seed]
         line = {"seed": seed, "failed": failed, "program": harness.check(
-            rows, model, seed, st.device, tie)}
+            rows, arch, model, seed, st.device, tie)}
         if seed in control:
-            line["control"] = harness.check(rows, model, seed, st.device,
-                                            tie, precision="fp8")
+            line["control"] = harness.check(rows, arch, model, seed,
+                                            st.device, tie, precision="fp8")
         out.append(line)
         print(json.dumps(line), flush=True)
     return out

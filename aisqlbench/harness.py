@@ -25,7 +25,6 @@ import torch
 
 from aisqlbench import devtrace, judge, spec, timeline, tokens, traffic
 from aisqlbench import weights
-from aisqlbench.reference import Reference
 
 # how long after the close a query submitted in the window may still
 # return: the drain is part of the measurement, and a query lasts until
@@ -48,40 +47,81 @@ def forbidden_modules() -> List[str]:
 # ---------------------------------------------------------------------------
 
 
-def model_dict(cfg) -> Dict[str, Any]:
-    """The ``model`` section of a configuration file, read off the port's
-    ``ModelConfig`` (how a smoke model is described to the reference)."""
-    return {k: getattr(cfg, k) for k in (
-        "num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim",
-        "d_ff", "vocab_size", "qk_norm", "use_bias", "rope_theta",
-        "norm_eps", "tie_embeddings", "dtype")}
+ABSENT = "<no such field>"
+
+
+def _plain(v: Any) -> Any:
+    """A value of the port's configuration as a JSON file holds it."""
+    if dataclasses.is_dataclass(v):
+        return {f.name: _plain(getattr(v, f.name))
+                for f in dataclasses.fields(v)}
+    if isinstance(v, (tuple, list)):
+        return [_plain(x) for x in v]
+    return v
+
+
+def model_dict(cfg, like: Dict[str, Any]) -> Dict[str, Any]:
+    """The keys of ``like`` (a configuration file's ``model`` section),
+    nested sections too, read off the port's ``ModelConfig``: a section
+    such as ``"moe"`` off ``cfg.moe`` field by field (how a smoke model is
+    described to the reference)."""
+    out = {}
+    for k, want in like.items():
+        got = getattr(cfg, k, ABSENT)
+        if isinstance(want, dict) and dataclasses.is_dataclass(got):
+            out[k] = model_dict(got, want)
+        else:
+            out[k] = _plain(got)
+    return out
+
+
+def _departures(want: Dict[str, Any], got: Dict[str, Any],
+                prefix: str = "") -> List[str]:
+    out = []
+    for k, v in want.items():
+        g = got[k]
+        if isinstance(v, dict) and isinstance(g, dict):
+            out += _departures(v, g, f"{prefix}{k}.")
+        elif g != v:
+            out.append(f"{prefix}{k}: file {v!r}, program {g!r}")
+    return out
 
 
 def check_config(cfg, model: Dict[str, Any]) -> List[str]:
-    """Where the port's configuration departs from the file's."""
-    got = model_dict(cfg)
-    return [f"{k}: file {v!r}, program {got.get(k)!r}"
-            for k, v in model.items() if got.get(k) != v]
+    """Where the port's configuration departs from the file's, key by key
+    (``moe.num_experts_per_tok``)."""
+    return _departures(model, model_dict(cfg, model))
 
 
 def build_engine(conf: Dict[str, Any], device: str, smoke: bool):
+    """The engine of the configuration's model, and the ``model`` section
+    the reference is given: the file's, checked against the port's
+    configuration; with ``smoke``, the same keys read off the smoke
+    model, served in the file's type."""
+    from repro_torch.configs import base
     from repro_torch.inference.engine import TorchInferenceEngine
-    e = conf["engine"]
-    eng = TorchInferenceEngine(conf["model_id"], smoke=smoke,
+    e, file_model = conf["engine"], conf["model"]
+    which = conf["model_id"]
+    if smoke:
+        which = dataclasses.replace(base.get_smoke_config(which),
+                                    dtype=file_model["dtype"])
+    eng = TorchInferenceEngine(which, smoke=smoke,
                                max_batch=e["slots"], max_seq=e["max_seq"],
                                backend="continuous", device=device)
-    model = model_dict(eng.cfg) if smoke else conf["model"]
-    if not smoke:
-        bad = check_config(eng.cfg, model)
-        if bad:
-            raise SystemExit("aisqlbench: the program's configuration is "
-                             "not the file's: " + "; ".join(bad))
-    return eng, model
+    if smoke:
+        return eng, model_dict(eng.cfg, file_model)
+    bad = check_config(eng.cfg, file_model)
+    if bad:
+        raise SystemExit("aisqlbench: the program's configuration is "
+                         "not the file's: " + "; ".join(bad))
+    return eng, file_model
 
 
-def fill_weights(params, model: Dict[str, Any], seed: int, device) -> None:
-    """Write the seeded weights into the engine's parameters in place."""
-    for group in weights.groups(model):
+def fill_weights(params, arch, model: Dict[str, Any], seed: int,
+                 device) -> None:
+    """Write the seeded weights of ``arch`` (an ``archs/`` module) into the
+    engine's parameters in place."""
+    for group in arch.groups(model):
         for name, x in weights.draw(model, seed, group, device):
             node = params
             for part in name.split("."):
@@ -104,8 +144,8 @@ class Taps:
     steps: host-side records only, and, when ``trace``, a synchronise at
     the end of each prefill step."""
 
-    def __init__(self, eng, model: Dict[str, Any], trace: bool):
-        self.eng, self.model, self.trace = eng, model, trace
+    def __init__(self, eng, arch, model: Dict[str, Any], trace: bool):
+        self.eng, self.arch, self.model, self.trace = eng, arch, model, trace
         self.b = eng._batcher
         self.lock = threading.Lock()
         self._undo = []
@@ -153,8 +193,9 @@ class Taps:
             for s in active:
                 if s is not None and s.state == "prefill":
                     n = min(self.b.prefill_chunk, len(s.enc) - s.filled)
-                    ops += timeline.step_flops(self.model, s.filled, n,
-                                               int(s.filled + n == len(s.enc)))
+                    ops += self.arch.step_flops(
+                        self.model, s.filled, n,
+                        int(s.filled + n == len(s.enc)))
         n0 = self.b.prefill_tokens
         t0 = time.perf_counter()
         orig(active, results, t0_)
@@ -274,18 +315,19 @@ def collect_outputs(tr, recs, taps: Taps, n: int, seed: int) -> List[Dict]:
     return rows
 
 
-def check(rows: List[Dict], model: Dict, seed: int, device, tie: float,
-          precision: str = "fp32") -> Dict[str, float]:
+def check(rows: List[Dict], arch, model: Dict, seed: int, device,
+          tie: float, precision: str = "fp32") -> Dict[str, float]:
     """The numbers of ``judge`` for the sampled rows: the program's
     (``precision`` "fp32"), or the control's against the fp32 reference
-    (``precision`` "fp8"); ``tie`` as for ``judge.score_numbers``."""
+    (``precision`` "fp8"), the reference being ``arch.Reference``; ``tie``
+    as for ``judge.score_numbers``."""
     if not rows:                       # nothing answered: nothing proven
         return {"score_gap": judge.BIG}
     seqs = [r["ids"] for r in rows]
     pos = [[len(s) - 1] for s in seqs]
-    lg = Reference(model, seed, device).run(seqs, pos)
+    lg = arch.Reference(model, seed, device).run(seqs, pos)
     if precision == "fp8":
-        c_lg = Reference(model, seed, device, "fp8").run(seqs, pos)
+        c_lg = arch.Reference(model, seed, device, "fp8").run(seqs, pos)
         rows = [dict(r, d=judge.d_of(c[-1])) for r, c in zip(rows, c_lg)]
     out = judge.score_numbers(rows, lg, tie)
     if precision == "fp8":
@@ -327,6 +369,7 @@ class Setup:
         self.w = bench.workload(workload)
         self.name = workload
         self.conf = bench.config_file(self.w["config"])
+        self.arch = bench.arch(self.w["config"])
         self.mix = bench.traffic_file(self.w["traffic"])
         self.cell = bench.cell_file(workload)
         self.limits = self.cell.get("limits", {}) if limits is None else limits
@@ -341,7 +384,7 @@ class Setup:
         self.t_built = time.perf_counter()
         self.eng, self.model = build_engine(self.conf, device, smoke)
         self.t_built = time.perf_counter() - self.t_built
-        self.taps = Taps(self.eng, self.model, trace)
+        self.taps = Taps(self.eng, self.arch, self.model, trace)
 
     def serve(self, seed: int, seconds: float, t_start: float,
               profile: bool):
@@ -354,7 +397,8 @@ class Setup:
         from repro_torch.obs import Observability
         from repro_torch.tables.table import Table
         t = time.perf_counter()
-        fill_weights(self.eng.params, self.model, seed, self.device)
+        fill_weights(self.eng.params, self.arch, self.model, seed,
+                     self.device)
         t_w = time.perf_counter() - t
         tr = traffic.generate(self.mix, seed, seconds)
         catalog = Catalog({n: Table(c) for n, c in tr.tables.items()})
@@ -463,7 +507,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     summary(run, log)
     del taps, run
     st.free()
-    numbers = check(rows, st.model, seed, st.device, st.tie)
+    numbers = check(rows, st.arch, st.model, seed, st.device, st.tie)
     numbers["failed"] = float(failed)
     limits_all = dict(st.limits, failed=0.0)
     compared = {k: numbers.get(k, judge.BIG) for k in limits_all}

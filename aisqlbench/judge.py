@@ -13,8 +13,9 @@ Numbers compared (each with a limit of its own in the cell's file):
                  ``score_gap`` limit: a nearer tie may fall either way)
 ``failed``       queries of the window that failed or never returned
 
-The control (the reference in fp8, ``reference.Reference(precision=
-"fp8")``) is judged the same way, by its own scores.
+The control (the reference in fp8, the architecture's
+``Reference(precision="fp8")``) is judged the same way, by its own
+scores.
 """
 from __future__ import annotations
 

@@ -17,5 +17,6 @@ def read(run):
         for p in s["children"] if p["kind"] == "step.forward"
         and p["t1"] * 1e9 + off > lo and p["t0"] * 1e9 + off < hi)
     busy = timeline.union((a, b) for _, a, b in run.events)
-    idle = sum(b - a - timeline.overlap(a, b, busy) for a, b in fwd)
+    cover = timeline.overlaps(fwd, busy)
+    idle = sum(b - a - c for (a, b), c in zip(fwd, cover))
     return 100.0 * idle / (hi - lo)

@@ -5,8 +5,13 @@ Every cell, configuration, traffic mix and per-layer metric is found by
 its name: a configuration in ``configs/<name>.json``, a traffic mix in
 ``traffic/<name>.json``, a cell's own parameters in
 ``workloads/<name>.json`` and a per-layer metric's reader in
-``metrics/<name>.py``.  Adding any of them is adding a file and an entry
-in ``BENCHMARK.json``; nothing here names one.
+``metrics/<name>.py``.  A configuration names its architecture
+(``"arch"``), whose module ``archs/<arch>.py`` gives everything that is
+the architecture's own: ``groups(model)``, its seeded leaves in drawing
+order; ``Reference(model, seed, device, precision)`` with ``.run(rows,
+positions)``, the plain reference; and ``step_flops(model, start, count,
+logits)``, its useful operations.  Adding any of them is adding a file and
+an entry in ``BENCHMARK.json``; nothing here names one.
 """
 from __future__ import annotations
 
@@ -28,6 +33,23 @@ def load_json(path: Path) -> Any:
         return json.load(f)
 
 
+def load_module(path: Path, prefix: str):
+    """The Python file at ``path``, loaded under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + re.sub(r"\W", "_", path.stem), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_arch(name: str, folder: Path = HERE):
+    """The module ``archs/<name>.py`` of the benchmark's folder."""
+    path = Path(folder) / "archs" / f"{name}.py"
+    if not NAME_RE.match(name) or not path.is_file():
+        raise KeyError(f"no architecture {name!r} in {path.parent}")
+    return load_module(path, "aisqlbench_arch_")
+
+
 class Bench:
     """``BENCHMARK.json`` and the files of the benchmark's folder."""
 
@@ -39,6 +61,7 @@ class Bench:
         self.workloads = {w["name"]: w for w in self.doc["workloads"]}
         self.end_to_end = {m["name"]: m for m in self.doc["end_to_end"]}
         self.per_layer = {m["name"]: m for m in self.doc["per_layer"]}
+        self._archs: Dict[str, Any] = {}
 
     # -- a cell and what it names ------------------------------------------
     def workload(self, name: str) -> Dict[str, Any]:
@@ -49,6 +72,15 @@ class Bench:
 
     def config_file(self, config: str) -> Dict[str, Any]:
         return load_json(self.root / self.configs[config]["file"])
+
+    def arch(self, config: str):
+        """The architecture module that the configuration's file names."""
+        name = self.config_file(config).get("arch")
+        if name is None:
+            raise KeyError(f"configuration {config!r} names no \"arch\"")
+        if name not in self._archs:
+            self._archs[name] = load_arch(name, self.folder)
+        return self._archs[name]
 
     def traffic_file(self, traffic: str) -> Dict[str, Any]:
         return load_json(self.folder / "traffic" / f"{traffic}.json")
@@ -71,12 +103,8 @@ class Bench:
 
     def reader(self, metric: str) -> Callable[[Any], Optional[float]]:
         """The ``read(run)`` function of ``metrics/<metric>.py``."""
-        path = self.folder / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            "aisqlbench_metric_" + re.sub(r"\W", "_", metric), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_module(self.folder / "metrics" / f"{metric}.py",
+                           "aisqlbench_metric_").read
 
 
 def problems(doc: Dict[str, Any]) -> List[str]:

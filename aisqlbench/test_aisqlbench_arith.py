@@ -1,5 +1,6 @@
 """Metric arithmetic on synthetic timelines, against hand counts: the
-drain rule, a percentile, unions and idle share, and the FLOP count."""
+drain rule, a percentile, unions and idle share, and the FLOP count (of
+the qwen3 architecture, ``archs/qwen3.py``)."""
 import importlib.util
 import types
 
@@ -8,6 +9,7 @@ import pytest
 from aisqlbench import devtrace, spec, timeline
 
 M = spec.HERE / "metrics"
+QWEN3 = spec.load_arch("qwen3")
 
 
 def reader(name):
@@ -65,19 +67,19 @@ def test_flops_by_hand():
     m = {"d_model": 4, "head_dim": 2, "num_heads": 2, "num_kv_heads": 1,
          "d_ff": 8, "num_layers": 3, "vocab_size": 10}
     # q, o: 4 x 4; k, v: 4 x 2; mlp: 3 x 4 x 8
-    assert timeline.matmul_params(m) == 2 * 16 + 2 * 8 + 96
+    assert QWEN3.matmul_params(m) == 2 * 16 + 2 * 8 + 96
     # a chunk of 3 tokens at positions 4, 5, 6: keys 5 + 6 + 7 = 18, and
     # the prompt ends there: 1 logits position
     want = 2 * 144 * 3 * 3 + 4 * 2 * 2 * 18 * 3 + 2 * 4 * 10
-    assert timeline.step_flops(m, 4, 3, 1) == want
+    assert QWEN3.step_flops(m, 4, 3, 1) == want
     # a prompt of 7 taken in by chunks of 3, 3 and 1 is the same work as
     # the 7 tokens at once, with the one logits position at the end
-    steps = [("prefill", 0, 1, 3, timeline.step_flops(m, 0, 3, 0)),
-             ("prefill", 1, 2, 3, timeline.step_flops(m, 3, 3, 0)),
-             ("prefill", 2, 3, 1, timeline.step_flops(m, 6, 1, 1))]
+    steps = [("prefill", 0, 1, 3, QWEN3.step_flops(m, 0, 3, 0)),
+             ("prefill", 1, 2, 3, QWEN3.step_flops(m, 3, 3, 0)),
+             ("prefill", 2, 3, 1, QWEN3.step_flops(m, 6, 1, 1))]
     whole = (2 * 144 * 7 * 3 + 4 * 2 * 2 * 28 * 3 + 2 * 4 * 10)
     assert timeline.window_flops(steps, 0, 3) == whole
-    assert timeline.step_flops(m, 0, 7, 1) == whole
+    assert QWEN3.step_flops(m, 0, 7, 1) == whole
     # half of the first step lies in [0.5, 3]
     assert timeline.window_flops(steps, 0.5, 3) == pytest.approx(
         whole - steps[0][4] / 2)

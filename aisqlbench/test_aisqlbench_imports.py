@@ -1,7 +1,9 @@
 """What the benchmark imports, by each module's whole top-level name: no
 file of it imports ``jax``, ``jaxlib``, ``flax`` or the JAX package
 ``repro`` (``repro_torch`` is another name), and the reference and what it
-reads import nothing of ``repro_torch`` either."""
+reads import nothing of ``repro_torch`` either: every architecture's
+module (``archs/*.py``, which holds its reference) by its imports and,
+loaded in a fresh process, by what that loads."""
 import ast
 import subprocess
 import sys
@@ -11,8 +13,10 @@ import pytest
 from aisqlbench import spec
 
 JAX = {"jax", "jaxlib", "flax", "repro"}
-REFERENCE = ["reference.py", "weights.py", "tokens.py", "judge.py",
-             "timeline.py", "traffic.py", "devtrace.py", "spec.py"]
+ARCHS = sorted(p.stem for p in (spec.HERE / "archs").glob("*.py"))
+REFERENCE = [f"archs/{a}.py" for a in ARCHS] + [
+    "weights.py", "tokens.py", "judge.py", "timeline.py", "traffic.py",
+    "devtrace.py", "spec.py"]
 
 
 def top_names(path):
@@ -39,7 +43,8 @@ def test_reference_reads_nothing_of_the_program(name):
 
 
 def test_reference_loads_nothing_of_the_program():
-    code = ("import sys; import aisqlbench.reference, aisqlbench.judge; "
+    code = ("import sys; from aisqlbench import judge, spec; "
+            f"[spec.load_arch(a) for a in {ARCHS!r}]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'repro', 'repro_torch'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,

@@ -6,9 +6,10 @@ import dataclasses
 import pytest
 import torch
 
-from aisqlbench import harness, judge, tokens
-from aisqlbench.reference import Reference
+from aisqlbench import harness, judge, spec, tokens
 
+QWEN3 = spec.load_arch("qwen3")
+Reference = QWEN3.Reference
 SEED = 2**31 + 12345
 PROMPTS = ["Does this document report a product defect? " + "abc de " * k
            for k in (1, 9, 14)]
@@ -20,15 +21,16 @@ def engine(arch):
     cfg = dataclasses.replace(base.get_smoke_config(arch), dtype="float32")
     eng = TorchInferenceEngine(cfg, max_batch=2, max_seq=256,
                                backend="continuous", device="cpu")
-    model = harness.model_dict(eng.cfg)
-    harness.fill_weights(eng.params, model, SEED, "cpu")
+    model = harness.model_dict(
+        eng.cfg, spec.Bench().config_file(arch)["model"])
+    harness.fill_weights(eng.params, QWEN3, model, SEED, "cpu")
     return eng, model
 
 
 def test_scores():
     from repro_torch.inference.backend import SCORE, Request
     eng, model = engine("qwen3-32b")
-    taps = harness.Taps(eng, model, trace=False)
+    taps = harness.Taps(eng, QWEN3, model, trace=False)
     taps.on = True
     try:
         out = eng.submit_batch([Request(p, eng.arch, SCORE, request_id=i)

@@ -3,17 +3,23 @@ synthetic traced run, against hand counts: ``kv_copy_ms_per_step``,
 ``forward_ms_per_step``, ``forward_idle_share`` and ``device_ops_per_step``
 (``.batch``).  Each reads None where the engine ring covers the traced
 window only in part, and ``forward_idle_share`` never exceeds
-``idle_share`` on the same data."""
+``idle_share`` on the same data.  ``forward_idle_share`` finds each forward
+span's overlap with the busy time by bisection, and reads on seeded
+synthetic traces exactly what the scan over every busy interval a span
+read, fast at a million events."""
 import copy
 import importlib.util
+import time
 import types
+
+import numpy as np
 
 import pytest
 
 pytest.importorskip("torch")
 
 import repro_torch.obs as obs  # noqa: E402
-from aisqlbench import spans, spec  # noqa: E402
+from aisqlbench import devtrace, spans, spec, timeline  # noqa: E402
 
 M = spec.HERE / "metrics"
 NEW = ["kv_copy_ms_per_step.batch", "forward_ms_per_step.batch",
@@ -180,3 +186,80 @@ def test_no_ring_or_no_device_reads_none(ring, monkeypatch, name):
     assert reader(name)(run(events=False)) is None      # the CPU
     monkeypatch.delattr(obs, "engine_ring")             # the parent
     assert reader(name)(run()) is None
+
+
+# ---------------------------------------------------------------------------
+# forward_idle_share at scale
+# ---------------------------------------------------------------------------
+
+
+def scan_forward_idle(run):
+    """The reader's formula as it was: for every forward span, a scan over
+    every busy interval (``timeline.overlap``)."""
+    lo, hi = run.window_ns
+    off = spans.offset_ns(run)
+    fwd = timeline.union(
+        (max(p["t0"] * 1e9 + off, lo), min(p["t1"] * 1e9 + off, hi))
+        for w in spans.covering_waves(run) for s in w["children"]
+        for p in s["children"] if p["kind"] == "step.forward"
+        and p["t1"] * 1e9 + off > lo and p["t0"] * 1e9 + off < hi)
+    busy = timeline.union((a, b) for _, a, b in run.events)
+    idle = sum(b - a - timeline.overlap(a, b, busy) for a, b in fwd)
+    return 100.0 * idle / (hi - lo)
+
+
+def synthetic(ring, seed, n_events, n_steps):
+    """A wave of ``n_steps`` back-to-back steps over the window, the first
+    and last across its edges, and ``n_events`` device events one after
+    another with gaps, some overlapping, all from ``seed``."""
+    rng = np.random.default_rng(seed)
+    dt = (B - A + 0.02) / n_steps
+    steps = []
+    for i in range(n_steps):
+        t0 = A - 0.01 + i * dt
+        f0, f1 = sorted(t0 + dt * rng.uniform(0.05, 0.95, 2))
+        steps.append(step(t0, t0 + dt, (f0, f1)))
+    fill(ring, wave(1, 98.0, 99.5, [], None),
+         wave(2, A - 0.02, B + 0.05, steps, 99.5))
+    gap = rng.exponential(0.4, n_events)
+    dur = rng.exponential(0.6, n_events)
+    gap[rng.uniform(size=n_events) < 0.1] *= -0.5         # overlaps
+    start = ns(A) + np.cumsum(gap + dur) * (B - A) * 1e9 / (
+        (gap + dur).sum())
+    ev = [("k", a, a + d) for a, d in zip(
+        start.tolist(), (dur * (B - A) * 1e9 / (gap + dur).sum()).tolist())]
+    return types.SimpleNamespace(events=devtrace.clip(
+        [(n, a, b - a) for n, a, b in ev], ns(A), ns(B)),
+        window_ns=(ns(A), ns(B)), clock_window=(A, B))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 2**31 + 11])
+def test_overlaps_are_the_scans_sums(seed):
+    rng = np.random.default_rng(seed)
+    ivs = [(float(a), float(a + d)) for a, d in zip(
+        rng.uniform(0, 1000, 3000).round(1), rng.exponential(0.5, 3000))]
+    merged = timeline.union(ivs)
+    edges = [x for iv in merged[::50] for x in iv]
+    spans_ = [(-5.0, -1.0), (1001.0, 1100.0), (-1.0, 2000.0)] + [
+        tuple(sorted(p)) for p in zip(
+            rng.uniform(-10, 1010, 300).tolist() + edges[::2],
+            rng.uniform(-10, 1010, 300).tolist() + edges[1::2])]
+    assert timeline.overlaps(spans_, merged) == [
+        timeline.overlap(a, b, merged) for a, b in spans_]
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7, 2**31 + 13])
+def test_forward_idle_share_is_the_scans_value(ring, seed):
+    r = synthetic(ring, seed, 20_000, 120)
+    got = reader("forward_idle_share.batch")(r)
+    assert 0.0 < got < 100.0
+    assert got == scan_forward_idle(r)
+
+
+def test_forward_idle_share_reads_a_million_events_fast(ring):
+    r = synthetic(ring, 2**31 + 17, 1_000_000, 1_000)
+    t = time.perf_counter()
+    got = reader("forward_idle_share.batch")(r)
+    took = time.perf_counter() - t
+    assert 0.0 < got < 100.0
+    assert took < 5.0, took

@@ -1,8 +1,11 @@
 """Metric arithmetic on timelines: unions of intervals, the drain rule, a
-percentile, and the model's useful operations.  Plain Python over numbers
-the harness recorded; no device and no program."""
+percentile, and the operations of the steps in a window.  Plain Python
+over numbers the harness recorded; no device and no program.  A model's
+useful operations are its architecture's (``archs/<arch>.py``,
+``step_flops``)."""
 from __future__ import annotations
 
+import bisect
 import math
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -31,6 +34,24 @@ def overlap(a: float, b: float, merged: Sequence[Interval]) -> float:
     return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
 
 
+def overlaps(spans: Sequence[Interval], merged: Sequence[Interval]
+             ) -> List[float]:
+    """``overlap(a, b, merged)`` of each span [a, b], each found by
+    bisection: the intervals that end at or before a, or start at or after
+    b, add a term of 0 to ``overlap``'s sum, so the sum of the others, in
+    the same order, is the same number."""
+    ends = [y for _, y in merged]
+    out = []
+    for a, b in spans:
+        i = bisect.bisect_right(ends, a)
+        j = i
+        while j < len(merged) and merged[j][0] < b:
+            j += 1
+        out.append(sum(max(0.0, min(b, y) - max(a, x))
+                       for x, y in merged[i:j]))
+    return out
+
+
 def nearest_rank(values: Sequence[float], q: float) -> float:
     """The q-quantile as the ceil(q n)-th smallest value."""
     v = sorted(values)
@@ -44,29 +65,6 @@ def rows_per_s(queries: Sequence[Dict], t0: float) -> float:
     done = [q for q in queries if q["ok"]]
     end = max(q["end"] for q in queries)
     return sum(q["rows"] for q in done) / (end - t0)
-
-
-# -- the model's useful operations ------------------------------------------
-
-def matmul_params(m: Dict) -> int:
-    """Weights a token multiplies through in one layer: the attention
-    projections and the SwiGLU feed-forward."""
-    d, hd = m["d_model"], m["head_dim"]
-    return (2 * d * m["num_heads"] * hd + 2 * d * m["num_kv_heads"] * hd
-            + 3 * d * m["d_ff"])
-
-
-def step_flops(m: Dict, start: int, count: int, logits: int) -> float:
-    """Useful operations of one row in one step: ``count`` tokens taken in
-    at positions ``start`` .. ``start + count - 1``, 2 x the active weights
-    each, attention over the valid keys (position + 1 of them, 4 hd a key
-    and head: q.k and p.v), and the output head at ``logits`` positions
-    (a prompt's last token)."""
-    layers = m["num_layers"]
-    keys = count * start + count * (count + 1) / 2
-    return (2.0 * matmul_params(m) * count * layers
-            + 4.0 * m["num_heads"] * m["head_dim"] * keys * layers
-            + 2.0 * m["d_model"] * m["vocab_size"] * logits)
 
 
 def window_flops(steps: Sequence[tuple], lo: float, hi: float) -> float:
