@@ -3,7 +3,8 @@
 Every hosted architecture is described by a :class:`ModelConfig`, plain data
 kept field for field equal to the JAX package's, so that one configuration
 means the same model in both packages.  Every architecture the JAX package
-hosts resolves here; an unknown id raises ``KeyError``.
+hosts resolves here, and so do the port's own (``PORT_ONLY_IDS``); an
+unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ ATTN = "attn"          # global causal self-attention
 LOCAL_ATTN = "local"   # sliding-window self-attention
 RGLRU = "rglru"        # RG-LRU recurrent block (recurrentgemma)
 RWKV = "rwkv6"         # RWKV-6 "Finch" time-mix block
+MLA = "mla"            # multi-head latent attention (DeepSeek-V2 / V3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,10 +30,28 @@ class MoEConfig:
     router_aux_loss: float = 0.001  # load-balance loss weight
     capacity_factor: float = 1.25   # per-expert token capacity multiplier
     padded_num_experts: int = 0     # experts padded up for even EP sharding
+    # the softmax router's settings, as class attributes (not fields, so
+    # that a config reads as the JAX package's): ``DeepSeekMoEConfig``
+    # makes them fields
+    scoring = "softmax"
+    correction_bias = False
+    norm_topk_prob = True
+    routed_scale = 1.0
 
     def __post_init__(self):
         if self.padded_num_experts == 0:
             object.__setattr__(self, "padded_num_experts", self.num_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """DeepSeek-V3's router: sigmoid scores s; the top k of s + b chosen
+    (b the correction bias, a parameter of the router), weighted by s
+    renormalised over the chosen and scaled by ``routed_scale``."""
+    scoring: str = "sigmoid"        # softmax | sigmoid
+    correction_bias: bool = True
+    norm_topk_prob: bool = True
+    routed_scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +105,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # --- training memory lever (per-arch default, overridable per run) -------
     grad_accum_steps: int = 1
+    # ``moe`` is the feed-forward of every layer from ``first_k_dense`` on
+    # (a class attribute: ``DeepSeekConfig`` makes it a field)
+    first_k_dense = 0
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -130,29 +153,40 @@ class ModelConfig:
         if not self.tie_embeddings:
             n += d * v                                # lm_head
         n += d                                        # final norm
-        for blk in self.block_pattern:
-            n += self._block_params(blk)
+        for i, blk in enumerate(self.block_pattern):
+            n += self._block_params(blk, self.is_moe_layer(i))
         if self.is_encoder_decoder:
-            n += self.encoder_layers * self._block_params(ATTN)
+            n += self.encoder_layers * self._block_params(ATTN, False)
             # cross attention per decoder layer
             n += self.num_layers * (2 * d * self.q_dim + 2 * d * self.kv_dim + d)
             n += d                                    # encoder final norm
         return n
 
-    def _block_params(self, blk: str) -> int:
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i``'s feed-forward is the mixture of experts."""
+        return self.moe is not None and i >= self.first_k_dense
+
+    def _block_params(self, blk: str, moe: bool) -> int:
         d = self.d_model
         n = 2 * d                                     # two pre-norms
         if blk in (ATTN, LOCAL_ATTN):
             n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
             if self.qk_norm:
                 n += 2 * self.head_dim
-            n += self._mlp_params()
+            n += self._mlp_params(moe)
+        elif blk == MLA:
+            r, rope = self.kv_lora_rank, self.qk_rope_head_dim
+            n += d * self.q_dim + d * (r + rope) + r  # wq, wkv_a, kv_norm
+            n += r * self.num_heads * (self.qk_nope_head_dim
+                                       + self.v_head_dim)   # wkv_b
+            n += self.num_heads * self.v_head_dim * d       # wo
+            n += self._mlp_params(moe)
         elif blk == RGLRU:
             w = self.lru_width
             n += 2 * d * w + w * d                    # x/gate in-proj, out-proj
             n += self.conv1d_width * w                # temporal conv
             n += 3 * w                                # a_param, input_gate, a_gate (diag)
-            n += self._mlp_params()
+            n += self._mlp_params(False)
         elif blk == RWKV:
             # time-mix: r,k,v,g,w projections + out; small lora-ish decay nets folded in
             n += 5 * d * d + d * d
@@ -163,11 +197,13 @@ class ModelConfig:
             raise ValueError(blk)
         return n
 
-    def _mlp_params(self) -> int:
+    def _mlp_params(self, moe: bool) -> int:
         d = self.d_model
-        if self.moe is not None:
+        if moe:
             m = self.moe
             n = d * m.num_experts                     # router
+            if m.correction_bias:
+                n += m.num_experts
             n += m.num_experts * (3 * d * m.expert_d_ff)
             if m.num_shared_experts:
                 n += 3 * d * m.shared_d_ff
@@ -181,8 +217,28 @@ class ModelConfig:
         m = self.moe
         full_expert = 3 * self.d_model * m.expert_d_ff
         inactive = (m.num_experts - m.num_experts_per_tok) * full_expert
-        n_moe_layers = sum(1 for b in self.block_pattern if b in (ATTN, LOCAL_ATTN))
+        n_moe_layers = sum(1 for i, b in enumerate(self.block_pattern)
+                           if b in (ATTN, LOCAL_ATTN, MLA)
+                           and self.is_moe_layer(i))
         return self.param_count() - inactive * n_moe_layers
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekConfig(ModelConfig):
+    """The DeepSeek-V2 / V3 decoder: ``MLA`` blocks, whose attention reads
+    a latent of ``kv_lora_rank`` dims and one RoPE key of
+    ``qk_rope_head_dim`` shared by the heads (``head_dim`` is a q / k
+    head's ``qk_nope_head_dim + qk_rope_head_dim``), and leading dense
+    layers of width ``d_ff`` before the mixture-of-experts ones.  Fields
+    the JAX package's ``ModelConfig`` lacks live here."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # the latent's RMSNorm keeps the ``deepseek_v3`` code's default eps,
+    # not ``norm_eps`` (``rms_norm_eps``), which the layers' norms take
+    latent_norm_eps: float = 1e-6
+    first_k_dense: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +281,11 @@ PORTED_IDS = ("proxy-8b", "oracle-70b", "rwkv6-1.6b", "recurrentgemma-9b",
               "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b", "stablelm-12b",
               "whisper-base", "qwen2-vl-7b")
 
+# Architectures of the port alone, with no JAX counterpart: the
+# DeepSeek-V3 block (latent attention, sigmoid-routed experts with a
+# correction bias, leading dense layers) at Moonlight-16B-A3B's widths.
+PORT_ONLY_IDS = ("moonlight-16b-a3b",)
+
 # Every architecture the JAX package hosts.
 KNOWN_IDS = (
     "recurrentgemma-9b", "command-r-35b", "qwen3-32b", "stablelm-12b",
@@ -245,12 +306,14 @@ _MODULE_FOR = {
     "stablelm-12b": "stablelm_12b",
     "whisper-base": "whisper_base",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
 
 
 def _module(arch: str):
     if arch not in _MODULE_FOR:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(KNOWN_IDS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(KNOWN_IDS + PORT_ONLY_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
 
 

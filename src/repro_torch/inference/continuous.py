@@ -17,7 +17,9 @@ The PyTorch counterpart of ``repro.inference.continuous``:
   * **chunked-prefill attention**: on the card a prefill step's attention
     layers run K2's chunked entry (``attention.takes_chunked_kernel``):
     qk-norm, RoPE, the cache append and the attention in two launches a
-    layer, counted in ``stats()["prefill_attn_kernel_layers"]``;
+    layer, counted in ``stats()["prefill_attn_kernel_layers"]``; latent
+    attention (``MLA``) layers take the absorbed form in plain products
+    over the gathered latent leaf;
   * **spans**: while tracing or a profiler is on, each ``serve`` call
     records a wave tree of step and phase spans (``obs/engine.py``).
 
@@ -46,12 +48,12 @@ from repro_torch.train.optim import leaves, map_tree
 
 
 def supports(cfg) -> bool:
-    """Continuous batching serves pure global-attention decoders: every
-    block's KV cache must be a flat per-layer [B, Smax] tensor for the
-    paged pool to tile."""
+    """Continuous batching serves pure global-attention decoders, GQA
+    (``ATTN``) or latent (``MLA``): every block's cache must be a flat
+    per-layer [B, Smax] tensor for the paged pool to tile."""
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         return False
-    return all(b == cfgs.ATTN for b in cfg.block_pattern)
+    return all(b in (cfgs.ATTN, cfgs.MLA) for b in cfg.block_pattern)
 
 
 def _pow2(n: int) -> int:
@@ -283,7 +285,12 @@ class ContinuousBatcher:
             C = toks.shape[1]
             pos = lens[:, None] + torch.arange(C, dtype=torch.int32,
                                                device=toks.device)[None]
-            out = self.model.apply(params, {"tokens": toks, "positions": pos},
+            # valid: the chunk's real tokens (a recorded MoE layer counts
+            # the experts of those alone)
+            valid = (torch.arange(C, device=toks.device)[None]
+                     < counts[:, None])
+            out = self.model.apply(params, {"tokens": toks, "positions": pos,
+                                            "valid": valid},
                                    mode="decode", cache=cache)
             self._chunked_layers = out.get("chunked_layers", 0)
         with phase("step.logits"):
@@ -352,8 +359,9 @@ class ContinuousBatcher:
             cache = self.kv.gather(self.kv.pool, tables, lens)
         with phase("step.forward"):
             with attention.use_decode_impl(self.decode_impl):
-                out = self.model.apply(params, {"tokens": cur}, mode="decode",
-                                       cache=cache)
+                out = self.model.apply(params, {"tokens": cur,
+                                                "valid": act[:, None] > 0},
+                                       mode="decode", cache=cache)
         with phase("step.logits"):
             logits = self.model.logits_of(params, out["hidden"][:, 0])
             nxt = torch.argmax(logits, -1)

@@ -2,13 +2,14 @@
 
 The port implements the global- and sliding-window attention blocks
 (``ATTN``, ``LOCAL_ATTN``, with qk-norm and parallel attention + MLP as
-options, biases where the config has them, RoPE or M-RoPE) with the
-dense gated MLP or a token-choice mixture of experts,
-the RG-LRU recurrent block (``RGLRU``, recurrentgemma) and the RWKV-6
-block (``RWKV``).  Every block has three entry points behind one
-interface:
+options, biases where the config has them, RoPE or M-RoPE) and the
+multi-head latent attention block (``MLA``, DeepSeek-V2 / V3), each
+with the dense gated MLP or a token-choice mixture of experts (softmax
+or DeepSeek-V3's sigmoid router; ``cfg.is_moe_layer``), the RG-LRU
+recurrent block (``RGLRU``, recurrentgemma) and the RWKV-6 block
+(``RWKV``).  Every block has three entry points behind one interface:
 
-    block_init(blk, gen, cfg, dtype)          -> params
+    block_init(blk, gen, cfg, dtype, layer)   -> params
     block_cache_init(blk, cfg, batch, smax)   -> cache (decode state)
     block_apply(blk, params, x, ctx)          -> (y, new_cache, aux_loss)
 
@@ -49,7 +50,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import shardctx
 from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, group_norm_heads, linear,
-                                       mlp_init, norm_init, rope_cos_sin)
+                                       mlp_init, norm_init, rope_cos_sin,
+                                       rotate_pairs)
+from repro_torch.obs import engine as obs_engine
 
 # The recurrent scans on CUDA tensors: "auto" launches the kernels (K4,
 # K5), "reference" takes their plain versions (for comparisons on the
@@ -77,7 +80,8 @@ class Ctx:
     mode: str                       # train | prefill | decode
     positions: Any                  # [B,S] int or [B,S,3] (M-RoPE)
     lengths: Optional[Any] = None   # [B] valid tokens incl. current step
-    valid: Optional[Any] = None     # [B,S] bool: pad mask for prefill
+    valid: Optional[Any] = None     # [B,S] bool: the real tokens (prefill's
+    #                                 pad mask; a batcher step's new ones)
     cache: Any = None               # this block's cache slice
     mesh_axes: Any = None           # (mesh, dp_axes, tp_axis) or None
     # values the layers of one forward share (``replace`` keeps the dict):
@@ -310,6 +314,129 @@ def attn_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *,
 
 
 # ===========================================================================
+# Multi-head latent attention (DeepSeek-V2 / V3), no q latent
+# ===========================================================================
+#
+# Per position the cache holds one latent leaf ``ckv`` [B, Smax, r + rope]:
+# c_n = kv_norm(x W_kva[:, :r]) and the rotated k_pe = RoPE(x W_kva[:, r:]),
+# which all heads share.  A head's key is [c_n W_UK_h | k_pe] and its
+# value c_n W_UV_h, W_kvb = [W_UK_h | W_UV_h] over the heads.  Full
+# sequences (train, prefill) take the decompressed form, as the
+# ``deepseek_v3`` code does; decode calls (the batcher's chunked prefill,
+# single-token steps) the absorbed one over the gathered latent view:
+# q~_h = q_nope_h W_UK_h^T, scores (q~_h . c_n + q_pe_h . k_pe) / sqrt(nope +
+# rope), context sum p c_n, then W_UV_h.  Plain batched products, fp32
+# softmax.  While a batcher step is recorded, the attention proper (past
+# the projections, before ``wo``) is the span ``layer.attn``.
+
+
+def mla_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
+    """``wq`` [D, H (nope + rope)], ``wkv_a`` [D, r + rope] (the latent and
+    the shared RoPE key), ``kv_norm`` over the latent, ``wkv_b`` [r, H (nope
+    + v)] (each head's k_nope, then its v) and ``wo`` [H v, D]."""
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    return {"wq": dense_init(gen, d, cfg.q_dim, dtype),
+            "wkv_a": dense_init(gen, d, r + cfg.qk_rope_head_dim, dtype),
+            "kv_norm": norm_init(r, dtype, gen.device, False),
+            "wkv_b": dense_init(gen, r, H * (cfg.qk_nope_head_dim
+                                             + cfg.v_head_dim), dtype),
+            "wo": dense_init(gen, H * cfg.v_head_dim, d, dtype)}
+
+
+def mla_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *, dtype,
+                   device):
+    return {"ckv": torch.zeros((batch, smax, cfg.kv_lora_rank
+                                + cfg.qk_rope_head_dim), dtype=dtype,
+                               device=device)}
+
+
+def _mla_inputs(params, x, ctx: Ctx):
+    """q_nope [B,S,H,nope], the rotated q_pe [B,S,H,rope] and the new
+    tokens' latent [B,S,r + rope].  RoPE turns the interleaved pairs of
+    the ``deepseek_v3`` code; its tables are made once a forward."""
+    cfg = ctx.cfg
+    B, S, _ = x.shape
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = linear(x, params["wq"]).view(B, S, cfg.num_heads, cfg.head_dim)
+    kv = linear(x, params["wkv_a"])
+    rope = ctx.memo.get("mla_rope")
+    if rope is None:
+        rope = ctx.memo["mla_rope"] = rope_cos_sin(
+            ctx.positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    cos, sin = rope                                         # [B, S, rope/2]
+    q_pe = rotate_pairs(q[..., dn:], cos[:, :, None], sin[:, :, None])
+    c = apply_norm(params["kv_norm"], kv[..., :r], cfg.latent_norm_eps)
+    return q[..., :dn], q_pe, torch.cat([c, rotate_pairs(kv[..., r:], cos,
+                                                         sin)], -1)
+
+
+def _mla_full(params, q_nope, q_pe, lat, cfg, chunk: int = 512):
+    """Causal attention over full sequences in the decompressed form:
+    k = [c_n W_UK | k_pe], v = c_n W_UV, in blocks of ``chunk`` queries,
+    fp32 scores and softmax.  Returns [B, S, H, v]."""
+    B, S, H, dn = q_nope.shape
+    r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv = linear(lat[..., :r], params["wkv_b"]).view(B, S, H, -1)
+    k = torch.cat([kv[..., :dn], lat[:, :, None, r:].expand(B, S, H, rope)],
+                  -1).float()
+    v = kv[..., dn:].float()
+    q = torch.cat([q_nope, q_pe], -1).float()
+    pos = torch.arange(S, device=q.device)
+    outs = []
+    for c0 in range(0, S, chunk):
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, c0:c0 + chunk], k)
+        s = s / math.sqrt(dn + rope)
+        keep = pos[None] <= pos[c0:c0 + chunk, None]
+        p = torch.softmax(s.masked_fill(~keep, attn.NEG_INF), -1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
+    return torch.cat(outs, 1).to(q_nope.dtype)
+
+
+def _mla_absorbed(params, q_nope, q_pe, lat, ctx: Ctx):
+    """A decode call of S new tokens a row: their latent written into the
+    cache view ``ctx.cache["ckv"]`` at lengths - S (positions past its end
+    land on its last slot, which the batcher never reads: a chunk overruns
+    the gathered width only in a row it does not prefill), then the
+    absorbed attention over the view, each query at ``ctx.positions``.
+    Returns [B, S, H, v]."""
+    cfg = ctx.cfg
+    B, S, H, dn = q_nope.shape
+    r = cfg.kv_lora_rank
+    ckv = ctx.cache["ckv"]                                  # [B, Smax, r+rope]
+    Smax = ckv.shape[1]
+    dev = ckv.device
+    idx = ((ctx.lengths - S).long()[:, None]
+           + torch.arange(S, device=dev)[None]).clamp(max=Smax - 1)
+    ckv[torch.arange(B, device=dev)[:, None], idx] = lat
+    w = params["wkv_b"].view(r, H, -1)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w[..., :dn])
+    qf = torch.cat([q_abs, q_pe], -1).reshape(B, S * H, -1)
+    s = torch.bmm(qf, ckv.transpose(1, 2)).float().view(B, S, H, Smax)
+    s.mul_(1.0 / math.sqrt(dn + cfg.qk_rope_head_dim))
+    keep = torch.arange(Smax, device=dev) <= ctx.positions[..., None]
+    s.masked_fill_(~keep[:, :, None], attn.NEG_INF)
+    p = torch.softmax(s, -1).to(ckv.dtype).view(B, S * H, Smax)
+    c = torch.bmm(p, ckv[..., :r]).view(B, S, H, r)
+    return torch.einsum("bshr,rhd->bshd", c, w[..., dn:])
+
+
+def mla_apply(params, x, ctx: Ctx):
+    """The latent attention of x [B, S, D] (after the pre-norm): the
+    projections, the attention (``layer.attn``), ``wo``.  Prefill writes
+    the pass's latents into the cache, decode appends the new ones."""
+    B, S, _ = x.shape
+    q_nope, q_pe, lat = _mla_inputs(params, x, ctx)
+    with obs_engine.layer("layer.attn"):
+        if ctx.mode == "decode":
+            out = _mla_absorbed(params, q_nope, q_pe, lat, ctx)
+        else:
+            out = _mla_full(params, q_nope, q_pe, lat, ctx.cfg)
+            if ctx.mode == "prefill":
+                write_prefix(ctx.cache["ckv"], lat)
+    return linear(out.reshape(B, S, -1), params["wo"]), ctx.cache
+
+
+# ===========================================================================
 # MoE MLP (token-choice top-k with per-expert capacity)
 # ===========================================================================
 #
@@ -321,10 +448,12 @@ def attn_cache_init(cfg: cfgs.ModelConfig, batch: int, smax: int, *,
 
 
 def moe_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
-    """Router (fp32 [D, E_padded]) and stacked experts ``wi`` / ``wg``
-    [E, D, F], ``wo`` [E, F, D], each expert drawn as ``dense_init`` into
-    its slice of the stack (no fp32 copy of a stack), and the fused shared
-    expert where the config has one."""
+    """Router (fp32 [D, E_padded], and the fp32 correction bias [E_padded]
+    where the config has one, drawn N(0, 0.1^2) so that a router that
+    ignores it shows) and stacked experts ``wi`` / ``wg`` [E, D, F], ``wo``
+    [E, F, D], each expert drawn as ``dense_init`` into its slice of the
+    stack (no fp32 copy of a stack), and the fused shared expert where the
+    config has one."""
     m = cfg.moe
     E = m.padded_num_experts
     d, f = cfg.d_model, m.expert_d_ff
@@ -338,6 +467,9 @@ def moe_init(gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
     p = {"router": {"w": dense_init(gen, d, E, torch.float32)},
          "experts": {"wi": stack(d, f), "wg": stack(d, f),
                      "wo": stack(f, d)}}
+    if m.correction_bias:
+        p["router"]["bias"] = 0.1 * torch.randn(
+            (E,), generator=gen, dtype=torch.float32, device=gen.device)
     if m.num_shared_experts:
         p["shared"] = mlp_init(gen, d, m.shared_d_ff, dtype, cfg.use_bias)
     return p
@@ -351,26 +483,47 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _gates(router_w, x2d, m: cfgs.MoEConfig):
-    """x2d [T, D] -> (the renormalised top-k gates scattered to [T, E],
-    the router's probabilities [T, E]), fp32.  Padding experts are masked
-    to -1e30 before the softmax, so they are never chosen."""
+def _gates(router_w, x2d, m: cfgs.MoEConfig, bias=None):
+    """x2d [T, D] -> (the top-k gates scattered to [T, E], the router's
+    probabilities [T, E]), fp32.  Padding experts are masked to -1e30
+    before the softmax, so they are never chosen.  The softmax router
+    chooses and weights by its probabilities.  The sigmoid router
+    (``m.scoring``) scores s = sigmoid(logits), chooses the top k of s +
+    ``bias`` (the correction bias, where given) and weights by s; its
+    probabilities, for the balance loss, are s over their sum.  Then
+    the chosen weights are renormalised (``m.norm_topk_prob``) and scaled
+    by ``m.routed_scale``."""
     logits = x2d.float() @ router_w                        # [T, E] fp32
     E = m.padded_num_experts
+    real = None
     if E > m.num_experts:
         real = torch.arange(E, device=logits.device) < m.num_experts
-        logits = torch.where(real[None], logits,
-                             torch.full_like(logits, -1e30))
-    probs = torch.softmax(logits, dim=-1)
-    topv, topi = _top_k(probs, m.num_experts_per_tok)
-    topv = topv / topv.sum(-1, keepdim=True)
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        choice = scores if bias is None else scores + bias
+        if real is not None:
+            scores = torch.where(real[None], scores, torch.zeros_like(scores))
+            choice = torch.where(real[None], choice,
+                                 torch.full_like(choice, -1e30))
+        _, topi = _top_k(choice, m.num_experts_per_tok)
+        topv = scores.gather(1, topi)
+        probs = scores / scores.sum(-1, keepdim=True)
+    else:
+        if real is not None:
+            logits = torch.where(real[None], logits,
+                                 torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        topv, topi = _top_k(probs, m.num_experts_per_tok)
+    if m.norm_topk_prob:
+        topv = topv / topv.sum(-1, keepdim=True)
+    topv = topv * m.routed_scale
     return torch.zeros_like(probs).scatter_(1, topi, topv), probs
 
 
-def _route(router_w, x2d, m: cfgs.MoEConfig):
+def _route(router_w, x2d, m: cfgs.MoEConfig, bias=None):
     """x2d [T, D] -> the gates [T, E] (fp32) and the Switch-style load
     balance aux loss (over the true experts only)."""
-    gates, probs = _gates(router_w, x2d, m)
+    gates, probs = _gates(router_w, x2d, m, bias)
     frac_tokens = (gates > 0).float().mean(0)
     frac_probs = probs.mean(0)
     aux = m.num_experts * (frac_tokens * frac_probs).sum()
@@ -445,10 +598,11 @@ def _moe_ep(params, x2d, m: cfgs.MoEConfig, mode: str, axes):
     names = tuple(mesh.mesh_dim_names)
     tok_spec = (dp, None)
     xl = x2d.redistribute(mesh, placements(mesh, tok_spec)).to_local()
-    rw = params["router"]["w"]
-    rw = rw.redistribute(mesh, [Replicate()] * len(names)).to_local()
+    rw, bias = (None if t is None else t.redistribute(
+        mesh, [Replicate()] * len(names)).to_local()
+        for t in (params["router"]["w"], params["router"].get("bias")))
     T_loc = xl.shape[0]
-    gates, probs = _gates(rw, xl, m)                        # [T_loc, E]
+    gates, probs = _gates(rw, xl, m, bias)                  # [T_loc, E]
     # global means of the Switch loss: per-rank sums, summed over dp
     sums = torch.stack([(gates > 0).float().sum(0), probs.sum(0)])
     red = [Partial() if n in dp else Replicate() for n in names]
@@ -493,10 +647,14 @@ def moe_apply(params, x, ctx: Ctx):
             mesh = x2d.device_mesh
             x2d = x2d.full_tensor()
             params = {k: v for k, v in params.items()}
-            params["router"] = {"w": params["router"]["w"].full_tensor()}
+            params["router"] = {k: t.full_tensor()
+                                for k, t in params["router"].items()}
             params["experts"] = {k: w.full_tensor() for k, w in
                                  params["experts"].items()}
-        gates, aux = _route(params["router"]["w"], x2d, m)
+        gates, aux = _route(params["router"]["w"], x2d, m,
+                            params["router"].get("bias"))
+        if obs_engine.recording() is not None:
+            _note_experts(gates, ctx.valid)
         cap = _capacity(m, x2d.shape[0], ctx.mode)
         e = params["experts"]
         y2d = _moe_local(x2d, gates, e["wi"], e["wg"], e["wo"], cap)
@@ -513,10 +671,23 @@ def moe_apply(params, x, ctx: Ctx):
     return y, aux
 
 
+def _note_experts(gates, valid) -> None:
+    """Note on the open span (a recorded batcher step's ``layer.ffn``) the
+    experts that took at least one of the layer's tokens and the largest
+    expert's token count, counted on the device over the valid tokens
+    (``valid`` [B, S] or None: all)."""
+    took = gates > 0
+    if valid is not None:
+        took = took & valid.reshape(-1, 1)
+    n = took.sum(0)
+    obs_engine.note(experts_hit=(n > 0).sum(), max_expert_tokens=n.max())
+
+
 def _ffn(params, h, ctx: Ctx):
     """The block's feed-forward on ``h``: the mixture of experts where the
-    config has one, else the gated MLP.  Returns (out, aux loss)."""
-    if ctx.cfg.moe is not None:
+    layer has one (``cfg.is_moe_layer``), else the gated MLP.  Returns
+    (out, aux loss)."""
+    if "moe" in params:
         return moe_apply(params["moe"], h, ctx)
     return apply_mlp(params["mlp"], h), 0.0
 
@@ -762,13 +933,16 @@ def rwkv_cache_init(cfg: cfgs.ModelConfig, batch: int, *, dtype, device):
 # ===========================================================================
 
 
-def block_init(blk: str, gen: torch.Generator, cfg: cfgs.ModelConfig, dtype):
+def block_init(blk: str, gen: torch.Generator, cfg: cfgs.ModelConfig, dtype,
+               layer: int):
+    """The params of block ``blk`` as layer ``layer`` of the model."""
     dev = gen.device
-    if blk in (cfgs.ATTN, cfgs.LOCAL_ATTN):
+    if blk in (cfgs.ATTN, cfgs.LOCAL_ATTN, cfgs.MLA):
         p = {"ln1": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
              "ln2": norm_init(cfg.d_model, dtype, dev, cfg.use_layernorm),
-             "attn": attn_init(gen, cfg, dtype)}
-        if cfg.moe is not None:
+             "attn": (mla_init if blk == cfgs.MLA else attn_init)(gen, cfg,
+                                                                  dtype)}
+        if cfg.is_moe_layer(layer):
             p["moe"] = moe_init(gen, cfg, dtype)
         else:
             p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
@@ -793,6 +967,8 @@ def block_cache_init(blk: str, cfg: cfgs.ModelConfig, batch: int, smax: int,
         window = cfg.attention_window if blk == cfgs.LOCAL_ATTN else 0
         return attn_cache_init(cfg, batch, smax, window=window, dtype=dtype,
                                device=device)
+    if blk == cfgs.MLA:
+        return mla_cache_init(cfg, batch, smax, dtype=dtype, device=device)
     if blk == cfgs.RGLRU:
         return rglru_cache_init(cfg, batch, dtype=dtype, device=device)
     if blk == cfgs.RWKV:
@@ -813,6 +989,14 @@ def block_apply(blk: str, params, x, ctx: Ctx):
         if cfg.parallel_block:
             m_out, aux = _ffn(params, h1, ctx)
             return _carry(x + a_out + m_out, ctx), new_cache, aux
+    elif blk == cfgs.MLA:
+        h1 = apply_norm(params["ln1"], x, cfg.norm_eps)
+        a_out, new_cache = mla_apply(params["attn"], h1, ctx)
+        x = x + a_out
+        h2 = apply_norm(params["ln2"], x, cfg.norm_eps)
+        with obs_engine.layer("layer.ffn"):
+            m_out, aux = _ffn(params, h2, ctx)
+        return x + m_out, new_cache, aux
     elif blk == cfgs.RGLRU:
         h1 = apply_norm(params["ln1"], x, cfg.norm_eps)
         a_out, new_cache = rglru_apply(params["rec"], h1, ctx)

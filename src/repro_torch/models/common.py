@@ -216,6 +216,17 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return y.to(x.dtype)
 
 
+def rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                 ) -> torch.Tensor:
+    """The rotation of x [..., hd] whose rotary pairs are interleaved,
+    (x[2i], x[2i+1]) turned by angle i, as the ``deepseek_v3`` code does
+    it: the pairs permuted to the half-split layout, then :func:`rotate`
+    (the result stays in the half-split layout; q and k both so, their
+    dot products are those of the interleaved rotation)."""
+    x = x.unflatten(-1, (-1, 2)).transpose(-1, -2).flatten(-2)
+    return rotate(x, cos, sin)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
     """Rotate x [..., S, H, hd] by positions [..., S], or with M-RoPE by

@@ -9,14 +9,16 @@ tail's layers follow the periods') and the forward pass is a loop over
 layers.  The decode cache keeps the JAX layout: ``cache["periods"]["b{i}"]``
 holds each period position's state stacked on a leading ``[P]`` axis
 (``"k"|"v"`` ``[P, B, Smax, KV, hd]`` for attention, ``[P, B, W, KV, hd]``
-rings for sliding-window attention, ``"h"|"conv"`` for RG-LRU,
+rings for sliding-window attention, ``"ckv"`` ``[P, B, Smax, r + rope]``
+for latent attention, ``"h"|"conv"`` for RG-LRU,
 ``"s"|"shift_t"|"shift_c"`` for RWKV-6), ``cache["tail"]["t{i}"]`` the
 tail blocks' states, and ``cache["len"]`` is ``[B]``.  Modes:
 
   * train:   full sequence, no cache, returns hidden states
   * prefill: full (right-padded) sequence, writes the cache, returns the
              hidden state of the last valid token per sequence
-  * decode:  new tokens against the cache
+  * decode:  new tokens against the cache (the batch's optional
+             ``valid`` [B, S] marks the real ones, for the layers' counts)
 
 A ``patches`` front end (qwen2-vl) prepends the batch's precomputed patch
 embeddings [B, P, D] to the token embeddings outside decode, so a pass
@@ -66,8 +68,8 @@ def init_params(cfg: cfgs.ModelConfig, gen: torch.Generator, dtype=None
     if cfg.learned_pos_embed:
         params["pos_embed"] = {"w": embed_init(gen, cfg.max_pos_embed,
                                                cfg.d_model, dtype)}
-    params["layers"] = [blocks.block_init(blk, gen, cfg, dtype)
-                        for blk in cfg.block_pattern]
+    params["layers"] = [blocks.block_init(blk, gen, cfg, dtype, i)
+                        for i, blk in enumerate(cfg.block_pattern)]
     return params
 
 
@@ -153,6 +155,7 @@ def apply(cfg: cfgs.ModelConfig, params, batch, *, mode: str, cache=None,
                  < lengths[:, None])                             # [B,S]
     elif mode == "decode":
         lengths = cache["len"] + S                           # S new tokens
+        valid = batch.get("valid")     # the real ones, where the caller says
     positions = _default_positions(cfg, batch, x, mode, lengths)
     ctx = blocks.Ctx(cfg=cfg, mode=mode, positions=positions, lengths=lengths,
                      valid=valid, mesh_axes=mesh_axes)

@@ -34,6 +34,16 @@ synchronize is added.  On the CPU phases carry no ``device_ms``.
 trace carries the same names on its own clock (torch records such ranges
 only on the thread that started the profiler).
 
+**Layer spans and notes.**  Inside a recorded step the layers may open
+spans of their own (:func:`layer`; an ``MLA`` block's ``layer.attn``
+and ``layer.ffn``, in ``models/blocks.py``), nested in ``step.forward``
+and timed as the phases are, and attach device tensors to the innermost
+open span (:func:`note`; the MoE layer's ``experts_hit`` and
+``max_expert_tokens``).  The notes are copied to the host once, when the
+wave closes, and stored as numbers among the span's attributes.  The
+recorder of the step open on the calling thread is a thread-local, so
+outside a recorded step a layer pays one thread-local read.
+
 Wave attributes: ``engine_id``, ``wave`` (the batcher's wave number),
 ``requests``, ``request_ids``, ``kinds`` (requests by kind),
 ``prev_wave_end`` (when the engine's previous wave ended, ``None`` for its
@@ -45,6 +55,7 @@ each prefilling row.
 """
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, List, Optional, Sequence
@@ -54,6 +65,13 @@ import torch
 from .trace import TraceRing, Tracer
 
 _RING = TraceRing(64)
+
+
+class _Local(threading.local):
+    rec = None              # the recorder whose recorded step is open
+
+
+_LOCAL = _Local()
 
 
 def engine_ring() -> TraceRing:
@@ -131,6 +149,7 @@ class WaveRecorder:
         self._stepping = False  # a recorded step is open
         self._cut = False       # the gate closed inside the open wave
         self._timed: List[Any] = []   # (span, open event, close event)
+        self._noted: List[Any] = []   # (span, attribute names, tensor)
         self._pool: List[Any] = []
 
     def _event(self):
@@ -178,6 +197,15 @@ class WaveRecorder:
                     span.attrs["device_ms"] = e0.elapsed_time(e1)
                 self._pool += (e0, e1)
             self._timed = []
+            if self._noted:
+                # one copy to the host; the notes were made in forwards
+                # that the last readback has drained
+                got = torch.cat([t for *_, t in self._noted]).tolist()
+                i = 0
+                for span, names, t in self._noted:
+                    span.attrs.update(zip(names, got[i:i + len(names)]))
+                    i += len(names)
+                self._noted = []
             _RING.put(key, tracer.to_dict())
         self.last_end = end
 
@@ -211,8 +239,32 @@ class _Step(_On):
         span = super().__enter__()
         span.set(kind=self.kind)
         self.rec._stepping = True
+        _LOCAL.rec = self.rec
         return span
 
     def __exit__(self, *exc):
         self.rec._stepping = False
+        _LOCAL.rec = None
         return super().__exit__(*exc)
+
+
+def recording() -> Optional[WaveRecorder]:
+    """The recorder of the recorded step open on this thread, or None."""
+    return _LOCAL.rec
+
+
+def layer(name: str):
+    """The context of a layer's span inside the recorded step open on this
+    thread (timed on CUDA as a phase is); records nothing elsewhere."""
+    rec = _LOCAL.rec
+    return _OFF if rec is None else _On(rec, name, True)
+
+
+def note(**values) -> None:
+    """Attach 0-d device tensors to the innermost open span of the
+    recorded step open on this thread, as attributes read when the wave
+    closes; nothing elsewhere."""
+    rec = _LOCAL.rec
+    if rec is not None:
+        rec._noted.append((rec._tracer._stack[-1], tuple(values),
+                           torch.stack(list(values.values()))))

@@ -54,6 +54,10 @@ SPAN_KINDS = {
                    "decode)",
     "step.scatter": "the step's new keys and values scattered to the pool",
     "step.readback": "logits or sampled tokens copied to the host",
+    "layer.attn": "an MLA layer's attention over the latent cache, inside "
+                  "step.forward",
+    "layer.ffn": "an MLA layer's feed-forward (dense or experts), inside "
+                 "step.forward",
 }
 
 EVENT_KINDS = {
